@@ -1,0 +1,301 @@
+"""ALSD beam search for transducers (PyTorch).
+
+Port of ``reazonspeech_tpu.decoding.rnnt_beam.rnnt_beam_decode``, NeMo's
+Alignment-Length Synchronous Decoding with the reference's semantics:
+
+- every live hypothesis advances one alignment step per iteration, by a
+  blank (one encoder frame) or one label, so all share t+u;
+- per step each proposes its blank extension and its top ``beam_size``
+  labels; the best ``beam_size`` proposals survive (ties to the lowest
+  proposal index, as ``lax.top_k``);
+- a blank extension at the last encoder frame is a final: it is recorded as
+  a value snapshot and leaves the beam; the best final under ``score_norm``
+  is the result, else the best live hypothesis;
+- hypotheses with equal label sequences merge their scores by log-sum-exp
+  into the earliest slot; the duplicate keeps its own slot and score
+  (NeMo's ``recombine_hypotheses``) unless ``recombine_dedup``;
+- each utterance's budget is ``T + int(alsd_max_target_len·T)`` steps.
+
+The loop body is fixed-shape tensor ops over [B, K] beams, with no host
+sync. Elements outside their budget are frozen by masks, so extra steps are
+no-ops: the host checks for termination once every ``CHECK_EVERY`` steps
+(one sync each), bounded by ``alsd_step_bound`` of the padded length.
+
+The per-step log-softmax + blank split + top-m runs in ``ops/beam_topk``
+when ``topk_impl="pallas"`` (the kernel on CUDA tensors), else in its plain
+twin. ``joint_impl``/``lstm_impl`` kernels are not ported yet.
+"""
+
+from dataclasses import dataclass
+from typing import NamedTuple
+
+import torch
+
+from ..models.rnnt import (
+    RNNTConfig, joint_precompute_enc, joint_step_from_enc_proj, predictor_step,
+)
+from ..ops.beam_topk import topm_logsoftmax, topm_logsoftmax_plain
+
+__all__ = ["BeamDecodeConfig", "rnnt_beam_decode", "alsd_step_bound"]
+
+CHECK_EVERY = 32  # alignment steps between host-side termination checks
+_DEAD = -1.0e30  # score of an empty/killed beam slot
+_ALIVE = -1.0e25  # scores above this are live hypotheses
+
+
+@dataclass(frozen=True)
+class BeamDecodeConfig:
+    """Field names and defaults as in the JAX package."""
+
+    beam_size: int = 4
+    alsd_max_target_len: float = 1.0
+    score_norm: bool = True
+    recombine_dedup: bool = False
+    max_tokens: int = 0  # emission buffer; 0 -> T + u_max
+    topk_impl: str = "xla"  # "pallas": the port's top-m kernel
+    joint_impl: str = "xla"  # fused joint kernel: not ported yet
+    lstm_impl: str = "xla"  # fused LSTM-cell kernel: not ported yet
+    unroll: int = 1  # exact in the reference; the eager loop needs no unrolling
+
+
+class ALSDBeamState(NamedTuple):
+    scores: torch.Tensor  # [B, K] fp32 (_DEAD = empty slot)
+    time_idx: torch.Tensor  # [B, K] int32 encoder frame per hypothesis
+    counts: torch.Tensor  # [B, K] int32 emissions per hypothesis
+    tokens: torch.Tensor  # [B, K, U] int32
+    frames: torch.Tensor  # [B, K, U] int32
+    last_tok: torch.Tensor  # [B, K] int32
+    pred_out: torch.Tensor  # [B, K, H] fp32
+    pred_h: torch.Tensor  # [B, K, L, H] fp32
+    pred_c: torch.Tensor  # [B, K, L, H] fp32
+    step: torch.Tensor  # [B] int32 alignment-step clock
+    fin_key: torch.Tensor  # [B] fp32 best final in the selection metric
+    fin_raw: torch.Tensor  # [B] fp32 its raw score
+    fin_tokens: torch.Tensor  # [B, U] int32
+    fin_frames: torch.Tensor  # [B, U] int32
+    fin_count: torch.Tensor  # [B] int32
+    fin_any: torch.Tensor  # [B] bool
+
+
+def alsd_step_bound(lane_len: int, cfg: BeamDecodeConfig) -> int:
+    """Upper bound on one utterance's alignment steps."""
+    return int(lane_len) + int(cfg.alsd_max_target_len * int(lane_len))
+
+
+def _check_supported(cfg: BeamDecodeConfig):
+    if cfg.joint_impl != "xla" or cfg.lstm_impl != "xla":
+        raise ValueError("joint_impl/lstm_impl kernels are not ported yet")
+    if cfg.topk_impl not in ("xla", "pallas"):
+        raise ValueError(f"unknown topk_impl {cfg.topk_impl!r}")
+
+
+def _norm_key(cfg, score, counts):
+    if not cfg.score_norm:
+        return score
+    return score / (counts.to(torch.float32) + 1.0)
+
+
+def _pred_step(pred_params, rnnt_cfg, tokens, h, c):
+    """predictor_step on [B, K] token rows with beam-layout state [B, K, L, H]."""
+    b, k, n_layers, hid = h.shape
+    flat = lambda s: s.reshape(b * k, n_layers, hid).transpose(0, 1)  # noqa: E731
+    out, (h_new, c_new) = predictor_step(
+        pred_params, tokens.reshape(b * k), (flat(h), flat(c)), rnnt_cfg)
+    unflat = lambda s: s.transpose(0, 1).reshape(b, k, n_layers, hid)  # noqa: E731
+    return out.reshape(b, k, hid), unflat(h_new), unflat(c_new)
+
+
+def _init_state(pred_params, b, rnnt_cfg: RNNTConfig, cfg: BeamDecodeConfig, u_buf,
+                device):
+    """Slot 0 holds the initial hypothesis (blank consumed by one predictor
+    step); the other slots are dead."""
+    k = cfg.beam_size
+    blank = rnnt_cfg.blank_id
+    i32 = dict(dtype=torch.int32, device=device)
+    zero = torch.zeros((b, k, rnnt_cfg.pred_rnn_layers, rnnt_cfg.pred_hidden), device=device)
+    last_tok = torch.full((b, k), blank, **i32)
+    pred_out, pred_h, pred_c = _pred_step(pred_params, rnnt_cfg, last_tok, zero, zero)
+    scores = torch.full((b, k), _DEAD, dtype=torch.float32, device=device)
+    scores[:, 0] = 0.0
+    return ALSDBeamState(
+        scores=scores,
+        time_idx=torch.zeros((b, k), **i32),
+        counts=torch.zeros((b, k), **i32),
+        tokens=torch.full((b, k, u_buf), blank, **i32),
+        frames=torch.zeros((b, k, u_buf), **i32),
+        last_tok=last_tok,
+        pred_out=pred_out, pred_h=pred_h, pred_c=pred_c,
+        step=torch.zeros((b,), **i32),
+        fin_key=torch.full((b,), _DEAD, dtype=torch.float32, device=device),
+        fin_raw=torch.full((b,), _DEAD, dtype=torch.float32, device=device),
+        fin_tokens=torch.full((b, u_buf), blank, **i32),
+        fin_frames=torch.zeros((b, u_buf), **i32),
+        fin_count=torch.zeros((b,), **i32),
+        fin_any=torch.zeros((b,), dtype=torch.bool, device=device),
+    )
+
+
+def _el_active(s: ALSDBeamState, enc_lengths, u_max_el):
+    """Elements inside their ALSD budget with a live hypothesis."""
+    return (s.step < enc_lengths + u_max_el) & (s.scores > _ALIVE).any(dim=1)
+
+
+def _make_body(pred_params, joint_params, enc_proj, enc_lengths, u_max_el,
+               rnnt_cfg: RNNTConfig, cfg: BeamDecodeConfig):
+    """One ALSD alignment step over the batch (no cross-element ops)."""
+    b, t, _ = enc_proj.shape
+    k = cfg.beam_size
+    m = min(k, rnnt_cfg.num_classes - 1)  # label expansions per hypothesis
+    bk = b * k
+    dev = enc_proj.device
+    rows = torch.arange(b, device=dev)[:, None]
+    jidx = torch.arange(k, device=dev)
+    topm = topm_logsoftmax if cfg.topk_impl == "pallas" else topm_logsoftmax_plain
+    blank = rnnt_cfg.blank_id
+    last_frame = enc_lengths[:, None] - 1
+
+    def body(s: ALSDBeamState) -> ALSDBeamState:
+        u_buf = s.tokens.shape[-1]
+        active_el = _el_active(s, enc_lengths, u_max_el)  # [B]
+        alive = s.scores > _ALIVE  # [B, K]
+
+        enc_frames = enc_proj[rows, torch.clamp(s.time_idx, max=t - 1)]  # [B, K, J]
+        logits = joint_step_from_enc_proj(
+            joint_params, enc_frames.reshape(bk, -1), s.pred_out.reshape(bk, -1), rnnt_cfg)
+        lp_blank, top_lp, top_tok = topm(logits, m, blank)
+        lp_blank = lp_blank.reshape(b, k)
+        top_lp = top_lp.reshape(b, k, m)
+        top_tok = top_tok.reshape(b, k, m)
+
+        blank_scores = torch.where(alive, s.scores + lp_blank, _DEAD)
+        can_emit = alive & (s.counts < u_buf)
+        emit_scores = torch.where(can_emit[..., None], s.scores[..., None] + top_lp, _DEAD)
+
+        # --- finals: blank extension of a hypothesis at its last frame ----
+        finalize = alive & (s.time_idx == last_frame)
+        f_key = torch.where(finalize, _norm_key(cfg, blank_scores, s.counts), _DEAD)
+        best_k = f_key.argmax(dim=1, keepdim=True)  # [B, 1], first max
+        best_key = f_key.gather(1, best_k)[:, 0]
+        improved = active_el & (best_key > s.fin_key)
+        g1 = lambda x: x.gather(1, best_k)[:, 0]  # noqa: E731
+        g2 = lambda x: x[rows, best_k][:, 0]  # noqa: E731
+        fin_key = torch.where(improved, best_key, s.fin_key)
+        fin_raw = torch.where(improved, g1(blank_scores), s.fin_raw)
+        fin_tokens = torch.where(improved[:, None], g2(s.tokens), s.fin_tokens)
+        fin_frames = torch.where(improved[:, None], g2(s.frames), s.fin_frames)
+        fin_count = torch.where(improved, g1(s.counts), s.fin_count)
+        fin_any = s.fin_any | (improved & finalize.any(dim=1))
+
+        # --- beam selection: top-K of all blank + label proposals ---------
+        flat_scores = torch.cat([blank_scores[..., None], emit_scores], dim=-1).reshape(
+            b, k * (m + 1))
+        # a stable descending sort keeps ties in index order (lax.top_k's)
+        new_scores, flat_idx = torch.sort(flat_scores, dim=1, descending=True, stable=True)
+        new_scores, flat_idx = new_scores[:, :k], flat_idx[:, :k]
+        src = flat_idx // (m + 1)
+        cand = flat_idx % (m + 1)  # 0 = blank, >= 1 = label index
+
+        n_time, n_counts, n_tokens, n_frames, n_last, n_pred_out, n_h, n_c, n_top = (
+            x[rows, src] for x in (s.time_idx, s.counts, s.tokens, s.frames, s.last_tok,
+                                   s.pred_out, s.pred_h, s.pred_c, top_tok))
+        new_tok = n_top.gather(-1, torch.clamp(cand - 1, min=0)[..., None])[..., 0]
+
+        sel_alive = new_scores > _ALIVE
+        is_blank = cand == 0
+        emit = ~is_blank & sel_alive
+        advance = is_blank & sel_alive
+
+        put = (torch.arange(u_buf, device=dev)[None, None, :] == n_counts[..., None]) \
+            & emit[..., None]
+        n_tokens = torch.where(put, new_tok[..., None], n_tokens)
+        n_frames = torch.where(put, n_time[..., None], n_frames)
+        n_counts = n_counts + emit.to(torch.int32)
+        n_time = n_time + advance.to(torch.int32)
+
+        # a hypothesis that consumed its last frame was finalised above
+        new_scores = torch.where(n_time >= enc_lengths[:, None], _DEAD, new_scores)
+
+        # --- recombination (identical label sequences merge) --------------
+        valid = new_scores > _ALIVE
+        eq = (
+            (n_tokens[:, :, None, :] == n_tokens[:, None, :, :]).all(dim=-1)
+            & (n_counts[:, :, None] == n_counts[:, None, :])
+            & valid[:, :, None] & valid[:, None, :]
+        )  # [B, K, K]
+        leader = torch.where(eq, jidx[None, None, :], k).min(dim=-1).values
+        leader = torch.where(valid, leader, jidx[None, :])
+        is_leader = leader == jidx[None, :]
+        member = leader[:, :, None] == jidx[None, None, :]  # [B, K(i), K(j)]
+        member_scores = torch.where(member, new_scores[:, :, None], _DEAD)
+        mmax = member_scores.max(dim=1).values  # [B, K(j)]
+        merged = mmax + torch.log(torch.exp(member_scores - mmax[:, None, :]).sum(dim=1))
+        new_scores = torch.where(is_leader, merged, _DEAD if cfg.recombine_dedup else new_scores)
+
+        # --- prediction network advances where a label was emitted --------
+        stepped_tok = torch.where(emit, new_tok, n_last)
+        out, h_new, c_new = _pred_step(pred_params, rnnt_cfg, stepped_tok, n_h, n_c)
+        n_pred_out = torch.where(emit[..., None], out, n_pred_out)
+        n_h = torch.where(emit[..., None, None], h_new, n_h)
+        n_c = torch.where(emit[..., None, None], c_new, n_c)
+
+        # --- freeze elements outside their budget -------------------------
+        def keep(new, old):
+            return torch.where(active_el.reshape((b,) + (1,) * (new.dim() - 1)), new, old)
+
+        return ALSDBeamState(
+            scores=keep(new_scores, s.scores), time_idx=keep(n_time, s.time_idx),
+            counts=keep(n_counts, s.counts), tokens=keep(n_tokens, s.tokens),
+            frames=keep(n_frames, s.frames), last_tok=keep(stepped_tok, s.last_tok),
+            pred_out=keep(n_pred_out, s.pred_out), pred_h=keep(n_h, s.pred_h),
+            pred_c=keep(n_c, s.pred_c), step=s.step + 1,
+            fin_key=fin_key, fin_raw=fin_raw, fin_tokens=fin_tokens,
+            fin_frames=fin_frames, fin_count=fin_count, fin_any=fin_any)
+
+    return body
+
+
+def _select_best(s: ALSDBeamState, cfg: BeamDecodeConfig):
+    """Best recorded final, else the best live hypothesis."""
+    beam_key = torch.where(s.scores > _ALIVE, _norm_key(cfg, s.scores, s.counts), _DEAD)
+    best = beam_key.argmax(dim=1, keepdim=True)  # [B, 1]
+    rows = torch.arange(best.shape[0], device=best.device)[:, None]
+    take1 = lambda x: x.gather(1, best)[:, 0]  # noqa: E731
+    take2 = lambda x: x[rows, best][:, 0]  # noqa: E731
+    fa = s.fin_any
+    tokens = torch.where(fa[:, None], s.fin_tokens, take2(s.tokens))
+    frames = torch.where(fa[:, None], s.fin_frames, take2(s.frames))
+    counts = torch.where(fa, s.fin_count, take1(s.counts))
+    scores = torch.where(fa, s.fin_raw, take1(s.scores))
+    return tokens, frames, counts, scores
+
+
+def rnnt_beam_decode(pred_params, joint_params, enc, enc_lengths, rnnt_cfg: RNNTConfig,
+                     cfg: BeamDecodeConfig = BeamDecodeConfig()):
+    """ALSD beam-search decode a batch.
+
+    Args:
+      enc: [B, T, E] fp32; enc_lengths: [B] int
+
+    Returns (tokens [B, U] int32 of the best hypothesis, frames [B, U] int32,
+    counts [B] int32, scores [B] fp32 raw).
+    """
+    _check_supported(cfg)
+    b, t, _ = enc.shape
+    enc_lengths = enc_lengths.to(torch.int32)
+    enc_proj = joint_precompute_enc(joint_params, enc, rnnt_cfg)  # [B, T, J]
+    max_steps = alsd_step_bound(t, cfg)
+    u_buf = cfg.max_tokens or max_steps
+    u_max_el = torch.floor(cfg.alsd_max_target_len * enc_lengths.to(torch.float32)).to(
+        torch.int32)
+    body = _make_body(pred_params, joint_params, enc_proj, enc_lengths, u_max_el,
+                      rnnt_cfg, cfg)
+    state = _init_state(pred_params, b, rnnt_cfg, cfg, u_buf, enc.device)
+    steps = 0
+    while steps < max_steps:
+        n = min(CHECK_EVERY, max_steps - steps)
+        for _ in range(n):
+            state = body(state)
+        steps += n
+        if not bool(_el_active(state, enc_lengths, u_max_el).any()):
+            break
+    return _select_best(state, cfg)

@@ -1,0 +1,106 @@
+"""Fused Conformer convolution module (folded batch norm).
+
+``fused_conv_module`` is the port of
+``reazonspeech_tpu.ops.conformer_conv.fused_conv_module`` with
+``norm="folded"`` and the LayerNorm applied by the caller:
+
+    pointwise D→2D (+b) → GLU → zero rows ≥ length → depthwise K-tap SAME
+    (+b) → folded batch norm → swish → pointwise D→D (+b)
+
+On a CUDA tensor it launches the hand-written Hopper kernels in
+``csrc/conformer_conv.cu`` (three launches through two scratch tensors);
+on a CPU tensor it runs :func:`fused_conv_module_plain`, the plain formula
+with the JAX kernel's dtype chain (bf16 matmul inputs with fp32
+accumulation, fp32 GLU, depthwise, norm and swish, output in the input
+dtype).
+"""
+
+import torch
+import torch.nn.functional as F
+
+from ._kernels import check_cuda, launch, stream_of
+
+__all__ = ["fold_batch_norm", "fused_conv_module", "fused_conv_module_plain"]
+
+
+def fold_batch_norm(p, eps=1e-5):
+    """{scale, bias, mean, var} -> fp32 (scale', bias') with
+    x·scale' + bias' == (x - mean)/sqrt(var + eps)·scale + bias."""
+    inv = p["scale"] / torch.sqrt(p["var"] + eps)
+    return inv.to(torch.float32), (p["bias"] - p["mean"] * inv).to(torch.float32)
+
+
+def fused_conv_module_plain(x, lengths, w_in, b_in, dw, b_dw, bn_scale, bn_bias,
+                            w_out, b_out):
+    """Plain PyTorch twin of the kernel (same contract as
+    :func:`fused_conv_module`)."""
+    b, t, d = x.shape
+    dt, f32 = x.dtype, torch.float32
+    k = dw.shape[0]
+    h2 = x.to(f32) @ w_in.to(dt).to(f32) + b_in.to(f32)
+    h = h2[..., :d] * torch.sigmoid(h2[..., d:])
+    valid = torch.arange(t, device=x.device)[None, :] < lengths.to(x.device)[:, None]
+    h = torch.where(valid[..., None], h, 0.0)
+    half = k // 2
+    hp = F.pad(h, (0, 0, half, k - 1 - half))  # SAME zero padding of time
+    taps = dw.reshape(k, d).to(f32)
+    acc = torch.zeros_like(h)
+    for j in range(k):
+        acc = acc + hp[:, j : j + t] * taps[j]
+    acc = acc + b_dw.to(f32)
+    y = acc * bn_scale.to(f32) + bn_bias.to(f32)
+    y = y * torch.sigmoid(y)
+    out = y.to(dt).to(f32) @ w_out.to(dt).to(f32) + b_out.to(f32)
+    return out.to(dt)
+
+
+def fused_conv_module(x, lengths, w_in, b_in, dw, b_dw, bn_scale, bn_bias,
+                      w_out, b_out):
+    """Fused Conformer conv module.
+
+    Args:
+      x: [B, T, D] layer-normed input in the compute dtype
+      lengths: [B] int32 valid frame counts
+      w_in: [D, 2D], b_in: [2D]   pointwise expansion (GLU halves it)
+      dw: [K, D] or [K, 1, D], b_dw: [D]   depthwise taps
+      bn_scale, bn_bias: [D] folded batch norm (:func:`fold_batch_norm`)
+      w_out: [D, D], b_out: [D]
+
+    Returns [B, T, D] in x.dtype. CUDA inputs must be bf16 x with
+    D % 64 == 0; weights are cast to the kernel's dtypes here, as the JAX
+    wrapper casts them.
+    """
+    if x.device.type == "cpu":
+        return fused_conv_module_plain(x, lengths, w_in, b_in, dw, b_dw, bn_scale,
+                                       bn_bias, w_out, b_out)
+    b, t, d = x.shape
+    k = dw.shape[0]
+    if d % 64:
+        raise ValueError(f"fused_conv_module: D={d} must be a multiple of 64")
+    bf16, f32, dev = torch.bfloat16, torch.float32, x.device
+    check_cuda("x", x, bf16, (b, t, d))
+    check_cuda("lengths", lengths, torch.int32, (b,), dev)
+    w_in = w_in.to(bf16).contiguous()
+    w_out = w_out.to(bf16).contiguous()
+    taps = dw.reshape(k, d).to(f32).contiguous()
+    vecs = [v.to(f32).contiguous() for v in (b_in, b_dw, bn_scale, bn_bias, b_out)]
+    check_cuda("w_in", w_in, bf16, (d, 2 * d), dev)
+    check_cuda("w_out", w_out, bf16, (d, d), dev)
+    check_cuda("dw", taps, f32, (k, d), dev)
+    for name, v, n in zip(("b_in", "b_dw", "bn_scale", "bn_bias", "b_out"), vecs,
+                          (2 * d, d, d, d, d)):
+        check_cuda(name, v, f32, (n,), dev)
+    b_in, b_dw, bn_scale, bn_bias, b_out = vecs
+    glu = torch.empty((b, t, d), dtype=f32, device=dev)  # scratch: masked GLU output
+    y = torch.empty_like(x)  # scratch: depthwise + norm + swish output
+    out = torch.empty_like(x)
+    with torch.cuda.device(dev):
+        launch("rs_fused_conv_module", x.data_ptr(), w_in.data_ptr(), b_in.data_ptr(),
+               taps.data_ptr(), b_dw.data_ptr(), bn_scale.data_ptr(), bn_bias.data_ptr(),
+               w_out.data_ptr(), b_out.data_ptr(), lengths.data_ptr(), glu.data_ptr(),
+               y.data_ptr(), out.data_ptr(), b, t, d, k, stream_of(x))
+    fused_conv_module.launches += 1
+    return out
+
+
+fused_conv_module.launches = 0

@@ -1,0 +1,114 @@
+"""Port encoder and transducer networks against the JAX package on the same
+weights (carried over by the bridge), at the slice's tiny configuration."""
+
+from dataclasses import replace
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from reazonspeech_tpu.models import fastconformer as jfc
+from reazonspeech_tpu.models import rnnt as jrnnt
+from reazonspeech_tpu.ops.testing import patch_interpret
+from reazonspeech_tpu_torch.convert.from_jax import params_from_numpy
+from reazonspeech_tpu_torch.models import fastconformer as tfc
+from reazonspeech_tpu_torch.models import rnnt as trnnt
+
+from test_torch_parity import jax_params_numpy, randomize_norm_stats, tiny_configs
+
+
+@pytest.fixture(scope="module")
+def setup():
+    jenc, jr, tenc, tr = tiny_configs()
+    tree = randomize_norm_stats(jax_params_numpy(0, jenc, jr), seed=1)
+    return jenc, jr, tenc, tr, tree
+
+
+def _feats(b, t, f, seed=0):
+    rng = np.random.default_rng(seed)
+    return rng.standard_normal((b, t, f)).astype(np.float32)
+
+
+@pytest.mark.parametrize("impl", ["pallas", "xla"])
+def test_encoder_matches_jax(setup, monkeypatch, impl):
+    """fp32 compute: the port's encoder equals the JAX encoder to 1e-4 max
+    abs on valid frames, through the kernel branch (the JAX kernels in
+    interpret mode, the port's plain twins) and through the plain branch."""
+    patch_interpret(monkeypatch)
+    jenc, _, tenc, _, tree = setup
+    jenc = replace(jenc, attn_impl=impl, conv_impl=impl)
+    tenc = replace(tenc, attn_impl=impl, conv_impl=impl)
+    feats = _feats(3, 203, jenc.feat_in)
+    lens = np.array([203, 150, 40], np.int32)
+    want, want_len = jfc.fastconformer_encode(
+        _jax_tree(tree["encoder"]), jnp.asarray(feats), jnp.asarray(lens), jenc)
+    got, got_len = tfc.fastconformer_encode(
+        params_from_numpy(tree["encoder"]), torch.from_numpy(feats), torch.from_numpy(lens),
+        tenc)
+    np.testing.assert_array_equal(got_len.numpy(), np.asarray(want_len))
+    want = np.asarray(want)
+    assert got.shape == want.shape and got.dtype == torch.float32
+    valid = (np.arange(want.shape[1])[None, :] < np.asarray(want_len)[:, None])[..., None]
+    assert np.abs((got.numpy() - want) * valid).max() <= 1e-4
+
+
+def _jax_tree(tree):
+    import jax
+
+    return jax.tree.map(jnp.asarray, tree)
+
+
+def test_subsample_and_pos_table_match_jax(setup):
+    jenc, _, tenc, _, tree = setup
+    feats = _feats(2, 64, jenc.feat_in, seed=3)
+    lens = np.array([64, 33], np.int32)
+    want, wl = jfc._subsample(_jax_tree(tree["encoder"]["subsampling"]), jnp.asarray(feats),
+                              jnp.asarray(lens), jenc)
+    got, gl = tfc._subsample(params_from_numpy(tree["encoder"]["subsampling"]),
+                             torch.from_numpy(feats), torch.from_numpy(lens), tenc)
+    np.testing.assert_array_equal(gl.numpy(), np.asarray(wl))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5, rtol=1e-5)
+    np.testing.assert_array_equal(tfc._sinusoid_rel_pos(9, 16, "cpu").numpy(),
+                                  np.asarray(jfc._sinusoid_rel_pos(9, 16)))
+
+
+def test_predictor_and_joint_match_jax(setup):
+    """One LSTM step and the joint logits, fp32, to 1e-5."""
+    _, jr, _, tr, tree = setup
+    tokens = np.array([jr.blank_id, 0, 5, 63], np.int32)
+    rng = np.random.default_rng(4)
+    h = rng.standard_normal((1, 4, jr.pred_hidden)).astype(np.float32)
+    c = rng.standard_normal((1, 4, jr.pred_hidden)).astype(np.float32)
+    enc = rng.standard_normal((4, 7, jr.enc_dim)).astype(np.float32)
+
+    jp, tp = _jax_tree(tree["predictor"]), params_from_numpy(tree["predictor"])
+    jg, (jh, jc) = jrnnt.predictor_step(jp, jnp.asarray(tokens), (jnp.asarray(h),
+                                        jnp.asarray(c)), jr)
+    tg, (th, tc) = trnnt.predictor_step(tp, torch.from_numpy(tokens),
+                                        (torch.from_numpy(h), torch.from_numpy(c)), tr)
+    for g, w in ((tg, jg), (th, jh), (tc, jc)):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=1e-5, rtol=1e-5)
+
+    jj, tj = _jax_tree(tree["joint"]), params_from_numpy(tree["joint"])
+    jproj = jrnnt.joint_precompute_enc(jj, jnp.asarray(enc), jr)
+    tproj = trnnt.joint_precompute_enc(tj, torch.from_numpy(enc), tr)
+    np.testing.assert_allclose(tproj.numpy(), np.asarray(jproj), atol=1e-5, rtol=1e-5)
+    want = jrnnt.joint_step_from_enc_proj(jj, jproj[:, 2], jg, jr)
+    got = trnnt.joint_step_from_enc_proj(tj, tproj[:, 2], tg, tr)
+    assert got.shape == (4, jr.num_classes) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5, rtol=1e-5)
+
+
+def test_unported_settings_raise(setup):
+    _, _, tenc, tr, tree = setup
+    p = params_from_numpy(tree["encoder"])
+    feats, lens = torch.zeros(1, 16, tenc.feat_in), torch.tensor([16])
+    for bad in (dict(lnd_impl="pallas"), dict(subsampling_style="conv2d"),
+                dict(conv_norm="layer_norm")):
+        with pytest.raises(ValueError):
+            tfc.fastconformer_encode(p, feats, lens, replace(tenc, **bad))
+    with pytest.raises(ValueError):
+        trnnt.predictor_step({}, torch.zeros(1, dtype=torch.int32), None,
+                             replace(tr, predictor_kind="stateless"))

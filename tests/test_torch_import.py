@@ -1,0 +1,30 @@
+"""The PyTorch port stands alone: no JAX at any import depth, and of the
+JAX package only the jax-free ``reazonspeech_tpu.core``."""
+
+import os
+import subprocess
+import sys
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_IMPORT_ALL = """
+import importlib, pkgutil, sys
+import reazonspeech_tpu_torch as pkg
+names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
+for name in names:
+    importlib.import_module(name)
+leaked = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib")))
+jax_pkg = sorted(m for m in sys.modules if m.startswith("reazonspeech_tpu.")
+                 and not m.startswith("reazonspeech_tpu.core"))
+print(len(names), ",".join(leaked + jax_pkg))
+"""
+
+
+def test_port_imports_no_jax():
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], env=env, cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    n_modules, leaked = out.stdout.split()[0], out.stdout.strip().partition(" ")[2]
+    assert int(n_modules) >= 20
+    assert leaked == "", f"imported by the port: {leaked}"
