@@ -1,8 +1,11 @@
 // Fused Conformer convolution module, folded batch norm.
 //
 // Replaces: reazonspeech_tpu/ops/conformer_conv.py, fused_conv_module
-// (a Pallas TPU kernel), with norm="folded" and the pre-module LayerNorm
-// done by the caller. Contract, x [B, T, D] bf16 (layer-normed):
+// (a Pallas TPU kernel), with norm="folded", in its two forms: the
+// pre-module LayerNorm done by the caller (rs_fused_conv_module), or inside
+// the kernel (rs_fused_conv_module_ln, the JAX kernel's ln_scale/ln_bias
+// path, conformer_conv.py:44-53). Contract, x [B, T, D] bf16 (layer-normed),
+// or x_raw [B, T, D] fp32 (the residual stream) with x = bf16(LN(x_raw)):
 //   h   = GLU(x·w_in + b_in)                 w_in [D, 2D] bf16, fp32 accumulate
 //   h   = 0 on rows t >= length[b]           (so padding never leaks)
 //   y   = Σ_j h[t+j-K/2]·dw[j] + b_dw         K-tap depthwise, SAME zero padding, fp32
@@ -32,20 +35,21 @@
 // GLU scratch would recompute each depthwise sum once per output column
 // tile (D/64 = 16 times at D=1024). Rows past B·T are zero in the GEMM
 // operands and never written.
+//
+// In-kernel LayerNorm: a launch before launch 1 normalizes each row of the
+// fp32 stream once (tiles.cuh ln_rows_kernel: one warp per row, fp32 mean
+// and variance, eps 1e-5, the affine) into a [B, T, D] bf16 scratch, which
+// is launch 1's A operand. Normalizing inside launch 1's operand loads
+// would redo each row's statistics once per output column tile (16 times
+// at D=1024) and read the stream in fp32 each time; the scratch costs one
+// 2-byte write and read per element (3.3 MB at B=4, T=401, L2-resident).
 
-#include <mma.h>
-
-#include "common.cuh"
+#include "tiles.cuh"
 
 using namespace nvcuda;
+using namespace rs::gemm;
 
 namespace {
-
-constexpr int GM = 64, GN = 64, GK = 32;  // output tile and K-step
-constexpr int NT = 128;                   // 4 warps, 2x2 over the output tile
-constexpr int LDA = GK + 8;               // bf16 strides: 16-B rows, wmma ldm % 8 == 0
-constexpr int LDB = GN + 8;
-constexpr int LDC = GN + 4;  // fp32 output tile stride
 
 typedef __nv_bfloat16 bf16;
 
@@ -56,67 +60,6 @@ struct Operands {   // the fp32 output tile reuses these bytes after the K loop
 };
 constexpr int SMEM_BYTES =
     sizeof(Operands) > GM * LDC * sizeof(float) ? sizeof(Operands) : GM * LDC * sizeof(float);
-
-typedef wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> FragA;
-typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> FragB;
-typedef wmma::fragment<wmma::accumulator, 16, 16, 16, float> FragC;
-
-// rows m0..m0+GM (zero past M), columns k0..k0+GK of a row-major [M, lda] bf16 matrix
-__device__ __forceinline__ void load_a(bf16* dst, const bf16* x, int lda, int M, int m0, int k0) {
-  for (int i = threadIdx.x; i < GM * GK / 8; i += NT) {
-    const int r = i / (GK / 8), c = (i % (GK / 8)) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (m0 + r < M) val = *reinterpret_cast<const uint4*>(x + size_t(m0 + r) * lda + k0 + c);
-    *reinterpret_cast<uint4*>(dst + r * LDA + c) = val;
-  }
-}
-
-// rows k0..k0+GK, columns col0..col0+GN of a row-major [*, ldw] bf16 matrix
-__device__ __forceinline__ void load_b(bf16* dst, const bf16* w, int ldw, int k0, int col0) {
-  for (int i = threadIdx.x; i < GK * GN / 8; i += NT) {
-    const int r = i / (GN / 8), c = (i % (GN / 8)) * 8;
-    *reinterpret_cast<uint4*>(dst + r * LDB + c) =
-        *reinterpret_cast<const uint4*>(w + size_t(k0 + r) * ldw + col0 + c);
-  }
-}
-
-__device__ __forceinline__ void zero(FragC (&acc)[2][2]) {
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
-}
-
-// acc += A[warp rows, :GK] · B[:GK, warp cols]; the warp owns a 32x32 quadrant
-__device__ __forceinline__ void mma_tile(const bf16* a, const bf16* b, FragC (&acc)[2][2],
-                                         int wm, int wn) {
-#pragma unroll
-  for (int kk = 0; kk < GK; kk += 16) {
-    FragA fa[2];
-    FragB fb[2];
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-      wmma::load_matrix_sync(fa[i], a + (wm * 32 + i * 16) * LDA + kk, LDA);
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-      wmma::load_matrix_sync(fb[j], b + kk * LDB + wn * 32 + j * 16, LDB);
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
-  }
-}
-
-__device__ __forceinline__ void store_tile(float* c, FragC (&acc)[2][2], int wm, int wn) {
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-      wmma::store_matrix_sync(c + (wm * 32 + i * 16) * LDC + wn * 32 + j * 16, acc[i][j], LDC,
-                              wmma::mem_row_major);
-}
-
-constexpr int PER_THREAD = GM * GN / NT;  // epilogue elements per thread
 
 // launch 1: glu[m, n] = (x·w_in + b_in)[m, n] · sigmoid((x·w_in + b_in)[m, D+n]),
 // zero where the row's frame is at or past its utterance's length
@@ -251,4 +194,24 @@ extern "C" int rs_fused_conv_module(const void* x, const void* w_in, const void*
       static_cast<const bf16*>(y), static_cast<const bf16*>(w_out),
       static_cast<const float*>(b_out), static_cast<bf16*>(out), M, D);
   RS_RETURN_LAST_ERROR();
+}
+
+// The same module with the pre-module LayerNorm inside: x_raw [B, T, D]
+// fp32, ln_g/ln_b [D] fp32, xn a [B, T, D] bf16 scratch for bf16(LN(x_raw)).
+extern "C" int rs_fused_conv_module_ln(const void* x_raw, const void* ln_g, const void* ln_b,
+                                       const void* w_in, const void* b_in, const void* dw,
+                                       const void* b_dw, const void* bn_scale,
+                                       const void* bn_bias, const void* w_out,
+                                       const void* b_out, const void* lengths, void* xn,
+                                       void* glu, void* y, void* out, int B, int T, int D,
+                                       int K, void* stream) {
+  if (B <= 0 || T <= 0 || K <= 0 || D <= 0 || D % GN != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int err = launch_ln_rows<bf16, false>(
+      static_cast<const float*>(x_raw), nullptr, 0.0f, static_cast<const float*>(ln_g),
+      static_cast<const float*>(ln_b), nullptr, static_cast<bf16*>(xn), nullptr, B * T, T, D,
+      1e-5f, static_cast<cudaStream_t>(stream));
+  if (err != 0) return err;
+  return rs_fused_conv_module(xn, w_in, b_in, dw, b_dw, bn_scale, bn_bias, w_out, b_out,
+                              lengths, glu, y, out, B, T, D, K, stream);
 }

@@ -1,9 +1,14 @@
 // Relative-position multi-head attention on projection-layout tensors.
 //
 // Replaces: reazonspeech_tpu/ops/relpos_attention.py, relpos_attention_fused
-// (a Pallas TPU kernel). Contract, per head h of q, k, v [B, T, D] bf16:
+// (:341) and relpos_attention_fused_packed (:402), Pallas TPU kernels, with
+// one kernel and two C entries: q, k, v are rows of row stride ld, [B, T, D]
+// tensors of their own (ld = D) or the column blocks 0, D and 2D of one
+// packed [B, T, 3D] projection (ld = 3D). Contract, per head h (bf16):
 //   scores = ((q+u)·kᵀ + shift((q+v)·posᵀ)) / sqrt(dh), shift(x)[t,s] = x[t, T-1-t+s]
 //   keys s >= length[b] score -1e30; fp32 softmax; out = p·v -> bf16 [B, T, D]
+// Every query row t < T is computed (the packed kernel's query rows past
+// the length too; the caller masks them later).
 // pos is [2T-1, H, dh] bf16 (offsets T-1 .. -(T-1)); u, v are [H, dh] bf16.
 //
 // What bounds it on the H100: at the slice's shapes (B=4, T=376, D=1024,
@@ -97,7 +102,7 @@ relpos_attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                         const bf16* __restrict__ v, const bf16* __restrict__ pos,
                         const bf16* __restrict__ bias_u, const bf16* __restrict__ bias_v,
                         const int* __restrict__ lengths, bf16* __restrict__ out, int T, int H,
-                        float scale) {
+                        int ld, float scale) {
   using L = Layout<DH>;
   constexpr int LD = L::LD;
   constexpr int NCOL = DH / 16;           // 16-wide column blocks of O
@@ -120,7 +125,8 @@ relpos_attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int b = blockIdx.z;
   const int D = H * DH;
   const int len = lengths[b];
-  const bf16* qb = q + size_t(b) * T * D;
+  const size_t batch = size_t(b) * T * ld;  // q, k, v row stride ld, out row stride D
+  const bf16* qb = q + batch;
 
   // q tile with the biases added (bf16-rounded sums, the JAX kernel's chain)
   for (int i = tid; i < BQ * (DH / 8); i += NT) {
@@ -131,7 +137,7 @@ relpos_attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
     for (int e = 0; e < 8; ++e) qu[e] = qv[e] = __float2bfloat16(0.0f);
     if (t < T) {
-      const uint4 x4 = *reinterpret_cast<const uint4*>(qb + size_t(t) * D + h * DH + d);
+      const uint4 x4 = *reinterpret_cast<const uint4*>(qb + size_t(t) * ld + h * DH + d);
       const uint4 u4 = *reinterpret_cast<const uint4*>(bias_u + h * DH + d);
       const uint4 w4 = *reinterpret_cast<const uint4*>(bias_v + h * DH + d);
       const bf16* x = reinterpret_cast<const bf16*>(&x4);
@@ -153,8 +159,8 @@ relpos_attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
   for (int s0 = 0; s0 < T; s0 += BK) {
     __syncthreads();  // the previous tile's readers are done
-    load_rows<DH>(s_k, k + size_t(b) * T * D, s0, BK, T, D, h * DH);
-    load_rows<DH>(s_v, v + size_t(b) * T * D, s0, BK, T, D, h * DH);
+    load_rows<DH>(s_k, k + batch, s0, BK, T, ld, h * DH);
+    load_rows<DH>(s_v, v + batch, s0, BK, T, ld, h * DH);
     load_rows<DH>(s_band, pos, T - 1 - (t0 + BQ - 1) + s0, NBAND, 2 * T - 1, D, h * DH);
     __syncthreads();
 
@@ -260,7 +266,7 @@ relpos_attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
 template <int DH>
 int launch(const void* q, const void* k, const void* v, const void* pos, const void* bu,
-           const void* bv, const void* lengths, void* out, int B, int T, int H,
+           const void* bv, const void* lengths, void* out, int B, int T, int H, int ld,
            cudaStream_t stream) {
   const size_t smem = Layout<DH>::bytes;
   const cudaError_t err = cudaFuncSetAttribute(relpos_attention_kernel<DH>,
@@ -271,24 +277,42 @@ int launch(const void* q, const void* k, const void* v, const void* pos, const v
   relpos_attention_kernel<DH><<<grid, NT, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
       static_cast<const bf16*>(pos), static_cast<const bf16*>(bu), static_cast<const bf16*>(bv),
-      static_cast<const int*>(lengths), static_cast<bf16*>(out), T, H,
+      static_cast<const int*>(lengths), static_cast<bf16*>(out), T, H, ld,
       1.0f / sqrtf(static_cast<float>(DH)));
   RS_RETURN_LAST_ERROR();
 }
 
+int launch_any(const void* q, const void* k, const void* v, const void* pos, const void* bu,
+               const void* bv, const void* lengths, void* out, int B, int T, int H, int dh,
+               int ld, void* stream) {
+  if (B <= 0 || T <= 0 || H <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (dh) {
+    case 16: return launch<16>(q, k, v, pos, bu, bv, lengths, out, B, T, H, ld, s);
+    case 32: return launch<32>(q, k, v, pos, bu, bv, lengths, out, B, T, H, ld, s);
+    case 64: return launch<64>(q, k, v, pos, bu, bv, lengths, out, B, T, H, ld, s);
+    case 128: return launch<128>(q, k, v, pos, bu, bv, lengths, out, B, T, H, ld, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
 }  // namespace
 
+// q, k, v [B, T, H·dh] bf16 each
 extern "C" int rs_relpos_attention_fused(const void* q, const void* k, const void* v,
                                          const void* pos, const void* bias_u,
                                          const void* bias_v, const void* lengths, void* out,
                                          int B, int T, int H, int dh, void* stream) {
-  if (B <= 0 || T <= 0 || H <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (dh) {
-    case 16: return launch<16>(q, k, v, pos, bias_u, bias_v, lengths, out, B, T, H, s);
-    case 32: return launch<32>(q, k, v, pos, bias_u, bias_v, lengths, out, B, T, H, s);
-    case 64: return launch<64>(q, k, v, pos, bias_u, bias_v, lengths, out, B, T, H, s);
-    case 128: return launch<128>(q, k, v, pos, bias_u, bias_v, lengths, out, B, T, H, s);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return launch_any(q, k, v, pos, bias_u, bias_v, lengths, out, B, T, H, dh, H * dh, stream);
+}
+
+// qkv [B, T, 3·H·dh] bf16: q, k, v are its column blocks 0, D and 2D
+extern "C" int rs_relpos_attention_fused_packed(const void* qkv, const void* pos,
+                                                const void* bias_u, const void* bias_v,
+                                                const void* lengths, void* out, int B, int T,
+                                                int H, int dh, void* stream) {
+  const bf16* q = static_cast<const bf16*>(qkv);
+  const int d = H * dh;
+  return launch_any(q, q + d, q + 2 * d, pos, bias_u, bias_v, lengths, out, B, T, H, dh,
+                    3 * d, stream);
 }

@@ -7,11 +7,20 @@ reference's tree (block leaves stacked [L, ...]); the block loop indexes
 layer i out of the stack.
 
 Two implementations per sub-block, chosen by the config as in the
-reference: ``attn_impl``/``conv_impl="pallas"`` runs the port's kernels
-(``ops/``; on CPU tensors their plain twins), ``"xla"`` the plain PyTorch
-formula of the reference's XLA branch. The TPU-only machinery is not
-ported: the 128-alignment pad of T, the VMEM shape gates, the ``lnd_impl``
-kernels (not yet ported) and sequence sharding.
+reference: ``attn_impl``/``conv_impl``/``lnd_impl="pallas"`` runs the
+port's kernels (``ops/``; on CPU tensors their plain twins), ``"xla"`` the
+plain PyTorch formula of the reference's XLA branch. ``lnd_impl="pallas"``
+fuses each pre-sub-block LayerNorm into the kernel that follows it: FFN-in
+with its swish (``ln_dense``), the conv module, and, with
+``attn_impl="pallas"``, one packed q/k/v projection that also takes the
+ffn1 residual add (``ln_dense_add``) feeding the packed attention kernel,
+with the ffn2 add, final LayerNorm and length mask in one ``add_ln``.
+
+The TPU-only machinery is not ported: the 128-alignment pad of T, the VMEM
+shape gates and sequence sharding. So every kernel runs at the true T, and
+the conv kernel runs at every T where the reference's byte gate sends long
+inputs to its XLA branch; at fp32 the two branches compute the same
+function.
 """
 
 import math
@@ -22,7 +31,10 @@ import numpy as np
 import torch
 
 from ..ops.conformer_conv import fold_batch_norm, fused_conv_module
-from ..ops.relpos_attention import rel_shift, relpos_attention_fused
+from ..ops.ln_dense import add_ln, ln_dense, ln_dense_add
+from ..ops.relpos_attention import (
+    rel_shift, relpos_attention_fused, relpos_attention_fused_packed,
+)
 from .layers import (
     batch_norm_infer, batch_norm_init, conv1d, conv1d_init, conv2d, conv2d_init,
     dense, dense_init, depthwise_conv1d, depthwise_conv1d_init, glu, layer_norm,
@@ -52,7 +64,7 @@ class FastConformerConfig:
     compute_dtype: str = "bfloat16"
     attn_impl: str = "xla"  # "pallas": the port's attention kernel
     conv_impl: str = "xla"  # "pallas": the port's conv-module kernel
-    lnd_impl: str = "xla"  # the ln_dense kernels are not ported yet
+    lnd_impl: str = "xla"  # "pallas": LayerNorms fused into the following kernels
     residual_dtype: str = "float32"
     remat: bool = False  # training only; inference ignores it
     seq_axis: Optional[str] = None
@@ -80,12 +92,11 @@ class FastConformerConfig:
 def _check_supported(cfg: FastConformerConfig):
     if cfg.subsampling_style != "dw_striding":
         raise ValueError("only dw_striding subsampling is ported (nemo)")
-    if cfg.lnd_impl != "xla":
-        raise ValueError("lnd_impl='pallas': the ln_dense kernels are not ported yet")
     if cfg.seq_axis is not None:
         raise ValueError("seq_axis: sequence sharding is not ported")
-    if cfg.attn_impl not in ("xla", "pallas") or cfg.conv_impl not in ("xla", "pallas"):
-        raise ValueError(f"unknown impl {cfg.attn_impl!r}/{cfg.conv_impl!r}")
+    impls = (cfg.attn_impl, cfg.conv_impl, cfg.lnd_impl)
+    if any(impl not in ("xla", "pallas") for impl in impls):
+        raise ValueError(f"unknown impl in attn/conv/lnd_impl={impls}")
     if cfg.conv_impl == "pallas" and cfg.conv_norm != "batch_norm":
         raise ValueError("the conv-module kernel is ported for batch_norm only")
 
@@ -176,6 +187,28 @@ def _sinusoid_rel_pos(t, d_model, device):
     return torch.from_numpy(pe).to(device)
 
 
+def _packed_attn(cfg: FastConformerConfig):
+    """The attention LayerNorm and q/k/v projection as one packed ln_dense_add
+    feeding the packed attention kernel (the reference's serving path)."""
+    return cfg.attn_impl == "pallas" and cfg.lnd_impl == "pallas"
+
+
+def _mhsa_packed(p, r, delta, pos_emb, lengths, cfg: FastConformerConfig):
+    """The MHSA sub-block on the packed path, with the preceding residual add
+    fused in: ``x = r + 0.5·delta`` (fp32) runs inside the q/k/v kernel,
+    whose three weight segments share one LN pass and are written side by
+    side into one [B, T, 3D] projection (no concatenated weight). Returns
+    ``(attn_out [B, T, D], x)``."""
+    h, dh, dt = cfg.num_heads, cfg.head_dim, cfg.dtype
+    w_qkv = tuple(p[k]["w"].to(dt) for k in ("attn_q", "attn_k", "attn_v"))
+    c_qkv = tuple(p[k]["b"] for k in ("attn_q", "attn_k", "attn_v"))
+    qkv, stream = ln_dense_add(r, delta, p["attn_ln"]["scale"], p["attn_ln"]["bias"], w_qkv,
+                               c_qkv, scale=0.5)
+    pos = dense(p["attn_pos"], pos_emb, dtype=dt).reshape(-1, h, dh)
+    out = relpos_attention_fused_packed(qkv, pos, p["attn_bias_u"], p["attn_bias_v"], lengths, h)
+    return dense(p["attn_out"], out, dtype=dt), stream
+
+
 def _mhsa_relpos(p, x_raw, pos_emb, mask, lengths, cfg: FastConformerConfig):
     """Pre-LN relative-position MHSA (Transformer-XL form). x_raw: [B, T, D]
     residual stream; pos_emb: [2T-1, D]; mask: [B, T]. Returns [B, T, D]."""
@@ -210,13 +243,15 @@ def _conv_module(p, x_raw, mask, lengths, cfg: FastConformerConfig):
     """LN -> pointwise(2d)+GLU -> mask -> depthwise(k) -> norm -> swish ->
     pointwise. Padded frames are zeroed before the depthwise conv."""
     dt = cfg.dtype
-    x = layer_norm(p["conv_ln"], x_raw).to(dt)
     if cfg.conv_impl == "pallas":
         scale, bias = fold_batch_norm(p["conv_bn"])
-        return fused_conv_module(
-            x, lengths, p["conv_in"]["w"][0], p["conv_in"]["b"],
-            p["conv_dw"]["w"], p["conv_dw"]["b"], scale, bias,
-            p["conv_out"]["w"][0], p["conv_out"]["b"])
+        weights = (p["conv_in"]["w"][0], p["conv_in"]["b"], p["conv_dw"]["w"],
+                   p["conv_dw"]["b"], scale, bias, p["conv_out"]["w"][0], p["conv_out"]["b"])
+        if cfg.lnd_impl == "pallas":  # the LayerNorm inside the kernel
+            return fused_conv_module(x_raw, lengths, *weights, ln_scale=p["conv_ln"]["scale"],
+                                     ln_bias=p["conv_ln"]["bias"], compute_dtype=dt)
+        return fused_conv_module(layer_norm(p["conv_ln"], x_raw).to(dt), lengths, *weights)
+    x = layer_norm(p["conv_ln"], x_raw).to(dt)
     x = glu(conv1d(p["conv_in"], x, dtype=dt))
     x = torch.where(mask[..., None], x, 0)
     x = depthwise_conv1d(p["conv_dw"], x, dtype=dt)
@@ -229,19 +264,37 @@ def _conv_module(p, x_raw, mask, lengths, cfg: FastConformerConfig):
 
 def _ffn(p, name, x, cfg: FastConformerConfig):
     dt = cfg.dtype
+    if cfg.lnd_impl == "pallas":
+        y = ln_dense(x, p[f"{name}_ln"]["scale"], p[f"{name}_ln"]["bias"],
+                     p[f"{name}_in"]["w"].to(dt), p[f"{name}_in"]["b"], activation="swish")
+        return dense(p[f"{name}_out"], y, dtype=dt)
     y = layer_norm(p[f"{name}_ln"], x).to(dt)
     y = swish(dense(p[f"{name}_in"], y, dtype=dt))
     return dense(p[f"{name}_out"], y, dtype=dt)
 
 
 def _block(p, x, pos_emb, mask, lengths, cfg: FastConformerConfig):
-    """One Conformer block; returns the masked stream in cfg.residual_dtype."""
+    """One Conformer block; returns the masked stream in cfg.residual_dtype.
+
+    On the packed path the residual chain runs in the kernels, as in the
+    reference's fused tail: the ffn1 add rides the q/k/v projection
+    (ln_dense_add), and the ffn2 add, the final LayerNorm and the length
+    mask are one add_ln."""
+    res_dt = getattr(torch, cfg.residual_dtype)
+    if _packed_attn(cfg):
+        y1 = _ffn(p, "ffn1", x, cfg)
+        attn_y, r1 = _mhsa_packed(p, x, y1, pos_emb, lengths, cfg)
+        r2 = r1 + attn_y.to(r1.dtype)
+        r3 = r2 + _conv_module(p, r2, mask, lengths, cfg).to(r1.dtype)
+        y3 = _ffn(p, "ffn2", r3, cfg)
+        return add_ln(r3, y3, lengths, p["final_ln"]["scale"], p["final_ln"]["bias"],
+                      scale=0.5, out_dtype=res_dt)
     x = x + 0.5 * _ffn(p, "ffn1", x, cfg)
     x = x + _mhsa_relpos(p, x, pos_emb, mask, lengths, cfg)
     x = x + _conv_module(p, x, mask, lengths, cfg)
     x = x + 0.5 * _ffn(p, "ffn2", x, cfg)
     y = layer_norm(p["final_ln"], x)
-    return torch.where(mask[..., None], y, 0).to(getattr(torch, cfg.residual_dtype))
+    return torch.where(mask[..., None], y, 0).to(res_dt)
 
 
 def _encode_prologue(params, feats, feat_lengths, cfg: FastConformerConfig):

@@ -5,8 +5,10 @@ FastConformer encoder → ALSD beam search (or label-looping greedy) →
 (token, frame) emissions. The waveform is the only host→device copy and the
 emission buffers the only device→host copy of a batch.
 
-On a CUDA device, ``load_model`` serves the configuration the port's kernels
-cover: rel-pos attention and the conv module on the Hopper kernels, bf16
+On a CUDA device, ``load_model`` serves the reference's serving
+configuration on the Hopper kernels: the LayerNorm-fused projections
+(FFN-in, packed q/k/v with the residual add), packed rel-pos attention, the
+conv module with its LayerNorm inside, the fused residual tail, bf16
 matmuls with fp32 accumulation, an fp32 residual stream, and the fused
 top-m kernel in the ALSD loop. On the CPU it runs the plain formulas.
 """
@@ -121,10 +123,12 @@ def _resolve_device(device):
 
 
 def _cuda_serving_config(enc_cfg: FastConformerConfig) -> FastConformerConfig:
-    """What the port serves on a GPU: its attention and conv-module kernels,
-    bf16 compute, fp32 residual stream (a bf16 stream flipped 78% of greedy
+    """What the port serves on a GPU, as the reference serves on its TPU
+    (``_tpu_serving_overrides``): every encoder kernel (attention, conv
+    module, and the LayerNorms fused into the kernels after them), bf16
+    compute, fp32 residual stream (a bf16 stream flipped 78% of greedy
     tokens in the reference's parity gate)."""
-    return replace(enc_cfg, attn_impl="pallas", conv_impl="pallas", lnd_impl="xla",
+    return replace(enc_cfg, attn_impl="pallas", conv_impl="pallas", lnd_impl="pallas",
                    compute_dtype="bfloat16", residual_dtype="float32")
 
 

@@ -1,25 +1,37 @@
 """Kernel-backed ops. Each public op launches a hand-written CUDA kernel
 (``csrc/``) on CUDA tensors and runs its ``*_plain`` PyTorch twin on CPU
-tensors; each keeps a ``launches`` counter of kernel launches."""
+tensors. Every kernel launch is counted under the kernel's name
+(:func:`launch_counts`); the conv module's two forms count apart, as
+``fused_conv_module`` (caller-side LayerNorm) and ``fused_conv_module_ln``
+(in-kernel LayerNorm)."""
 
+from ._kernels import KERNELS, launches
 from .beam_topk import topm_logsoftmax, topm_logsoftmax_plain
 from .conformer_conv import fold_batch_norm, fused_conv_module, fused_conv_module_plain
-from .relpos_attention import relpos_attention_fused, relpos_attention_fused_plain
-
-KERNEL_OPS = (relpos_attention_fused, fused_conv_module, topm_logsoftmax)
+from .ln_dense import (
+    add_ln, add_ln_plain, ln_dense, ln_dense_add, ln_dense_add_plain, ln_dense_plain,
+)
+from .relpos_attention import (
+    relpos_attention_fused, relpos_attention_fused_packed, relpos_attention_fused_packed_plain,
+    relpos_attention_fused_plain,
+)
 
 
 def reset_launch_counts():
-    for op in KERNEL_OPS:
-        op.launches = 0
+    for name in KERNELS:
+        launches[name] = 0
 
 
 def launch_counts():
-    return {op.__name__: op.launches for op in KERNEL_OPS}
+    """{kernel name: launches since the last reset}."""
+    return dict(launches)
 
 
 __all__ = [
-    "KERNEL_OPS", "fold_batch_norm", "fused_conv_module", "fused_conv_module_plain",
-    "launch_counts", "relpos_attention_fused", "relpos_attention_fused_plain",
-    "reset_launch_counts", "topm_logsoftmax", "topm_logsoftmax_plain",
+    "KERNELS", "add_ln", "add_ln_plain", "fold_batch_norm", "fused_conv_module",
+    "fused_conv_module_plain", "launch_counts", "ln_dense", "ln_dense_add",
+    "ln_dense_add_plain", "ln_dense_plain", "relpos_attention_fused",
+    "relpos_attention_fused_packed", "relpos_attention_fused_packed_plain",
+    "relpos_attention_fused_plain", "reset_launch_counts", "topm_logsoftmax",
+    "topm_logsoftmax_plain",
 ]

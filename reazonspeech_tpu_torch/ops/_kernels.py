@@ -1,12 +1,15 @@
 """Build, load and call the port's CUDA kernels.
 
-All ``csrc/*.cu`` sources compile with ``nvcc`` for ``sm_90a`` into ONE
-shared library with a plain C interface, loaded with ``ctypes`` (no
-PyTorch headers, so the build takes seconds). The library is built at first
+The ``csrc/*.cu`` sources compile with ``nvcc`` for ``sm_90a``, one
+process per source, all started together, and link into ONE shared
+library with a plain C interface, loaded with ``ctypes`` (no PyTorch
+headers, so the build takes seconds). The library is built at first
 use into ``build/torch_kernels/`` beside the package, named by a hash of the
 sources and flags, so an edited source is rebuilt and an unchanged one is
 loaded as it is. Each C entry launches on the stream it is given and
-returns ``cudaGetLastError()``; :func:`launch` raises when that is not 0.
+returns ``cudaGetLastError()``; :func:`launch` raises when that is not 0,
+and otherwise adds one to the entry's count in :data:`launches` (keyed by
+the kernel's name, the entry without its ``rs_`` prefix).
 
 Nothing here runs at import: this module is imported on machines without
 ``nvcc`` or a GPU, where only the plain twins in ``ops/`` are used.
@@ -24,27 +27,44 @@ from pathlib import Path
 
 import torch
 
-__all__ = ["load_library", "launch", "check_cuda", "stream_of", "build_info"]
+__all__ = ["KERNELS", "build_info", "check_cuda", "launch", "launches", "load_library",
+           "stream_of"]
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry -> argument types (pointers and the stream as void*, ints as int)
 _SIGNATURES = {
     # q, k, v, pos, bias_u, bias_v, lengths, out, B, T, H, dh, stream
     "rs_relpos_attention_fused": [_P] * 8 + [_I] * 4 + [_P],
+    # qkv, pos, bias_u, bias_v, lengths, out, B, T, H, dh, stream
+    "rs_relpos_attention_fused_packed": [_P] * 6 + [_I] * 4 + [_P],
     # x, w_in, b_in, dw, b_dw, bn_scale, bn_bias, w_out, b_out, lengths,
     # glu scratch, swish scratch, out, B, T, D, K, stream
     "rs_fused_conv_module": [_P] * 13 + [_I] * 4 + [_P],
+    # x_raw, ln_g, ln_b, w_in, b_in, dw, b_dw, bn_scale, bn_bias, w_out, b_out,
+    # lengths, LN scratch, glu scratch, swish scratch, out, B, T, D, K, stream
+    "rs_fused_conv_module_ln": [_P] * 16 + [_I] * 4 + [_P],
+    # x, g, b, w0, w1, w2, c0, c1, c2, n0, n1, n2, LN scratch, out, M, D,
+    # swish, eps, stream
+    "rs_ln_dense": [_P] * 9 + [_I] * 3 + [_P] * 2 + [_I] * 3 + [_F, _P],
+    # r, delta, g, b, w0, w1, w2, c0, c1, c2, n0, n1, n2, LN scratch,
+    # summed-stream out, out, M, D, swish, scale, eps, stream
+    "rs_ln_dense_add": [_P] * 10 + [_I] * 3 + [_P] * 3 + [_I] * 3 + [_F, _F, _P],
+    # r, y, g, b, lengths, out, B, T, D, scale, eps, stream
+    "rs_add_ln": [_P] * 6 + [_I] * 3 + [_F, _F, _P],
     # logits, lp_blank, top_lp, top_tok, R, V, m, blank, is_bf16, stream
     "rs_topm_logsoftmax": [_P] * 4 + [_I] * 5 + [_P],
 }
+KERNELS = tuple(name.removeprefix("rs_") for name in _SIGNATURES)
+# kernel name -> launches since the last reset (ops.reset_launch_counts)
+launches = dict.fromkeys(KERNELS, 0)
 
 _lock = threading.Lock()
 _lib = None
@@ -80,17 +100,28 @@ def _build():
         _info.update(path=str(so), seconds=0.0, log="(cached)")
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", tmp, *map(str, cu)]
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    os.replace(tmp, so)  # atomic: concurrent builders never see a partial file
-    _info.update(path=str(so), seconds=seconds, log=proc.stderr)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [Path(tmp) / f"{src.stem}.o" for src in cu]
+        logs = [Path(tmp) / f"{src.stem}.log" for src in cu]
+        procs = []
+        for src, obj, log in zip(cu, objs, logs):
+            with open(log, "w") as f:
+                procs.append(subprocess.Popen(
+                    [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", "-o", str(obj), str(src)],
+                    stdout=f, stderr=subprocess.STDOUT))
+        codes = [proc.wait() for proc in procs]
+        log = "".join(path.read_text() for path in logs)
+        if any(codes):
+            raise RuntimeError(f"nvcc failed ({codes}):\n{log}")
+        linked = Path(tmp) / so.name
+        proc = subprocess.run([nvcc, "-shared", "-o", str(linked), *map(str, objs)],
+                              capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{proc.stderr}")
+        os.replace(linked, so)  # atomic: a concurrent build never sees a partial file
+    _info.update(path=str(so), seconds=time.perf_counter() - t0, log=log)
     return so
 
 
@@ -117,12 +148,14 @@ def build_info():
 
 
 def launch(name, *args):
-    """Call C entry ``name``; raise if the launch reported a CUDA error."""
+    """Call C entry ``name``; raise if the launch reported a CUDA error,
+    else count the launch."""
     lib = load_library()
     err = getattr(lib, name)(*args)
     if err != 0:
         msg = lib.rs_cuda_error_string(err).decode()
         raise RuntimeError(f"{name}: CUDA error {err} ({msg})")
+    launches[name.removeprefix("rs_")] += 1
 
 
 def stream_of(t):

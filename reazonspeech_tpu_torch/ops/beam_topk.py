@@ -68,8 +68,5 @@ def topm_logsoftmax(logits, m, blank):
         launch("rs_topm_logsoftmax", logits.data_ptr(), lp_blank.data_ptr(),
                top_lp.data_ptr(), top_tok.data_ptr(), r, v, m, blank,
                int(logits.dtype == torch.bfloat16), stream_of(logits))
-    topm_logsoftmax.launches += 1
     return lp_blank, top_lp, top_tok
 
-
-topm_logsoftmax.launches = 0

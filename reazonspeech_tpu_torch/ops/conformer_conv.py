@@ -2,23 +2,27 @@
 
 ``fused_conv_module`` is the port of
 ``reazonspeech_tpu.ops.conformer_conv.fused_conv_module`` with
-``norm="folded"`` and the LayerNorm applied by the caller:
+``norm="folded"``:
 
-    pointwise D→2D (+b) → GLU → zero rows ≥ length → depthwise K-tap SAME
-    (+b) → folded batch norm → swish → pointwise D→D (+b)
+    [LayerNorm →] pointwise D→2D (+b) → GLU → zero rows ≥ length →
+    depthwise K-tap SAME (+b) → folded batch norm → swish → pointwise D→D (+b)
 
-On a CUDA tensor it launches the hand-written Hopper kernels in
-``csrc/conformer_conv.cu`` (three launches through two scratch tensors);
-on a CPU tensor it runs :func:`fused_conv_module_plain`, the plain formula
-with the JAX kernel's dtype chain (bf16 matmul inputs with fp32
-accumulation, fp32 GLU, depthwise, norm and swish, output in the input
-dtype).
+The pre-module LayerNorm is done by the caller (x is the normalized input
+in the compute dtype), or, with ``ln_scale``/``ln_bias``, inside the kernel
+(x is the raw fp32 residual stream, normalized in fp32 and rounded to
+``compute_dtype``). On a CUDA tensor it launches the hand-written Hopper
+kernels in ``csrc/conformer_conv.cu`` (three launches through two scratch
+tensors, one more for the in-kernel LayerNorm); on a CPU tensor it runs
+:func:`fused_conv_module_plain`, the plain formula with the JAX kernel's
+dtype chain (bf16 matmul inputs with fp32 accumulation, fp32 GLU,
+depthwise, norm and swish, output in the compute dtype).
 """
 
 import torch
 import torch.nn.functional as F
 
 from ._kernels import check_cuda, launch, stream_of
+from .ln_dense import layer_norm_fp32
 
 __all__ = ["fold_batch_norm", "fused_conv_module", "fused_conv_module_plain"]
 
@@ -31,11 +35,13 @@ def fold_batch_norm(p, eps=1e-5):
 
 
 def fused_conv_module_plain(x, lengths, w_in, b_in, dw, b_dw, bn_scale, bn_bias,
-                            w_out, b_out):
+                            w_out, b_out, *, ln_scale=None, ln_bias=None, compute_dtype=None):
     """Plain PyTorch twin of the kernel (same contract as
     :func:`fused_conv_module`)."""
     b, t, d = x.shape
-    dt, f32 = x.dtype, torch.float32
+    dt, f32 = compute_dtype or x.dtype, torch.float32
+    if ln_scale is not None:
+        x = layer_norm_fp32(x, ln_scale, ln_bias).to(dt)
     k = dw.shape[0]
     h2 = x.to(f32) @ w_in.to(dt).to(f32) + b_in.to(f32)
     h = h2[..., :d] * torch.sigmoid(h2[..., d:])
@@ -55,30 +61,40 @@ def fused_conv_module_plain(x, lengths, w_in, b_in, dw, b_dw, bn_scale, bn_bias,
 
 
 def fused_conv_module(x, lengths, w_in, b_in, dw, b_dw, bn_scale, bn_bias,
-                      w_out, b_out):
+                      w_out, b_out, *, ln_scale=None, ln_bias=None, compute_dtype=None):
     """Fused Conformer conv module.
 
     Args:
-      x: [B, T, D] layer-normed input in the compute dtype
+      x: [B, T, D] layer-normed input in the compute dtype, or the raw
+        residual stream when ``ln_scale``/``ln_bias`` are given
       lengths: [B] int32 valid frame counts
       w_in: [D, 2D], b_in: [2D]   pointwise expansion (GLU halves it)
       dw: [K, D] or [K, 1, D], b_dw: [D]   depthwise taps
       bn_scale, bn_bias: [D] folded batch norm (:func:`fold_batch_norm`)
       w_out: [D, D], b_out: [D]
+      ln_scale, ln_bias: [D] pre-module LayerNorm affine (fp32 statistics,
+        eps 1e-5), or None
+      compute_dtype: the matmul dtype (default x.dtype)
 
-    Returns [B, T, D] in x.dtype. CUDA inputs must be bf16 x with
-    D % 64 == 0; weights are cast to the kernel's dtypes here, as the JAX
-    wrapper casts them.
+    Returns [B, T, D] in the compute dtype. On CUDA the compute dtype is
+    bf16, x is bf16 (fp32 with the in-kernel LayerNorm) and D % 64 == 0;
+    weights are cast to the kernel's dtypes here, as the JAX wrapper casts
+    them.
     """
     if x.device.type == "cpu":
-        return fused_conv_module_plain(x, lengths, w_in, b_in, dw, b_dw, bn_scale,
-                                       bn_bias, w_out, b_out)
+        return fused_conv_module_plain(x, lengths, w_in, b_in, dw, b_dw, bn_scale, bn_bias,
+                                       w_out, b_out, ln_scale=ln_scale, ln_bias=ln_bias,
+                                       compute_dtype=compute_dtype)
     b, t, d = x.shape
     k = dw.shape[0]
     if d % 64:
         raise ValueError(f"fused_conv_module: D={d} must be a multiple of 64")
     bf16, f32, dev = torch.bfloat16, torch.float32, x.device
-    check_cuda("x", x, bf16, (b, t, d))
+    in_ln = ln_scale is not None
+    if (compute_dtype or x.dtype) != bf16:
+        raise TypeError(f"fused_conv_module: compute dtype {compute_dtype or x.dtype}, "
+                        "the CUDA kernel multiplies in bf16")
+    check_cuda("x", x, f32 if in_ln else bf16, (b, t, d))
     check_cuda("lengths", lengths, torch.int32, (b,), dev)
     w_in = w_in.to(bf16).contiguous()
     w_out = w_out.to(bf16).contiguous()
@@ -92,15 +108,22 @@ def fused_conv_module(x, lengths, w_in, b_in, dw, b_dw, bn_scale, bn_bias,
         check_cuda(name, v, f32, (n,), dev)
     b_in, b_dw, bn_scale, bn_bias, b_out = vecs
     glu = torch.empty((b, t, d), dtype=f32, device=dev)  # scratch: masked GLU output
-    y = torch.empty_like(x)  # scratch: depthwise + norm + swish output
-    out = torch.empty_like(x)
+    y = torch.empty((b, t, d), dtype=bf16, device=dev)  # scratch: depthwise + norm + swish
+    out = torch.empty((b, t, d), dtype=bf16, device=dev)
+    weights = (w_in.data_ptr(), b_in.data_ptr(), taps.data_ptr(), b_dw.data_ptr(),
+               bn_scale.data_ptr(), bn_bias.data_ptr(), w_out.data_ptr(), b_out.data_ptr(),
+               lengths.data_ptr())
     with torch.cuda.device(dev):
-        launch("rs_fused_conv_module", x.data_ptr(), w_in.data_ptr(), b_in.data_ptr(),
-               taps.data_ptr(), b_dw.data_ptr(), bn_scale.data_ptr(), bn_bias.data_ptr(),
-               w_out.data_ptr(), b_out.data_ptr(), lengths.data_ptr(), glu.data_ptr(),
-               y.data_ptr(), out.data_ptr(), b, t, d, k, stream_of(x))
-    fused_conv_module.launches += 1
+        if in_ln:
+            g, bb = (v.to(f32).contiguous() for v in (ln_scale, ln_bias))
+            check_cuda("ln_scale", g, f32, (d,), dev)
+            check_cuda("ln_bias", bb, f32, (d,), dev)
+            xn = torch.empty((b, t, d), dtype=bf16, device=dev)  # scratch: bf16(LN(x))
+            launch("rs_fused_conv_module_ln", x.data_ptr(), g.data_ptr(), bb.data_ptr(),
+                   *weights, xn.data_ptr(), glu.data_ptr(), y.data_ptr(), out.data_ptr(), b,
+                   t, d, k, stream_of(x))
+        else:
+            launch("rs_fused_conv_module", x.data_ptr(), *weights, glu.data_ptr(),
+                   y.data_ptr(), out.data_ptr(), b, t, d, k, stream_of(x))
     return out
 
-
-fused_conv_module.launches = 0

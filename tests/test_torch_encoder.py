@@ -54,6 +54,66 @@ def test_encoder_matches_jax(setup, monkeypatch, impl):
     assert np.abs((got.numpy() - want) * valid).max() <= 1e-4
 
 
+@pytest.mark.parametrize("impl,frames", [("pallas", 203), ("pallas", 1024), ("xla", 203)])
+def test_encoder_lnd_pallas_matches_jax(setup, monkeypatch, impl, frames):
+    """lnd_impl="pallas", fp32 compute, a ragged batch: the port's encoder
+    equals the JAX encoder (its kernels in interpret mode) to 5e-5 max abs
+    on valid frames, and frames past each length are exactly 0. With the
+    attention and conv kernels (impl="pallas") both run the fused block tail
+    (ln_dense_add, add_ln); 1024 feature frames give T=128 encoder frames,
+    which JAX runs unpadded, 203 give T=26, which JAX pads to 128 and the
+    port does not. With impl="xla" only the FFN-in LayerNorms are fused."""
+    patch_interpret(monkeypatch)
+    jenc, _, tenc, _, tree = setup
+    jenc = replace(jenc, attn_impl=impl, conv_impl=impl, lnd_impl="pallas")
+    tenc = replace(tenc, attn_impl=impl, conv_impl=impl, lnd_impl="pallas")
+    feats = _feats(3, frames, jenc.feat_in, seed=frames)
+    lens = np.array([frames, frames * 3 // 4, 40], np.int32)
+    want, want_len = jfc.fastconformer_encode(
+        _jax_tree(tree["encoder"]), jnp.asarray(feats), jnp.asarray(lens), jenc)
+    got, got_len = tfc.fastconformer_encode(
+        params_from_numpy(tree["encoder"]), torch.from_numpy(feats), torch.from_numpy(lens),
+        tenc)
+    np.testing.assert_array_equal(got_len.numpy(), np.asarray(want_len))
+    want, got = np.asarray(want), got.numpy()
+    assert got.shape == want.shape
+    valid = (np.arange(want.shape[1])[None, :] < np.asarray(want_len)[:, None])[..., None]
+    assert np.abs((got - want) * valid).max() <= 5e-5
+    assert not np.any(got * ~valid) and not valid.all()
+
+
+def test_mhsa_packed_matches_jax(setup, monkeypatch):
+    """The packed attention sub-block with the ffn1 residual add fused in
+    (ln_dense_add on the packed q/k/v, then the packed attention kernel)
+    against the JAX packed path, fp32, to 1e-5 on every row, both the
+    attention output and the summed stream (at T=128, the JAX packed
+    kernel's layout)."""
+    jenc, _, tenc, _, tree = setup
+    jenc = replace(jenc, lnd_impl="pallas")
+    tenc = replace(tenc, lnd_impl="pallas")
+    rng = np.random.default_rng(6)
+    t = 128
+    x, delta = (rng.standard_normal((2, t, jenc.d_model)).astype(np.float32) for _ in range(2))
+    lens = np.array([t, 90], np.int32)
+    mask = np.arange(t)[None, :] < lens[:, None]
+    jp = _jax_tree(_first(tree["encoder"]["blocks"]))
+    tp = tfc._layer(params_from_numpy(tree["encoder"]["blocks"]), 0)
+    patch_interpret(monkeypatch)
+    want = jfc._mhsa_relpos(jp, jnp.asarray(x), jfc._sinusoid_rel_pos(t, jenc.d_model),
+                            jnp.asarray(mask), jenc, delta=jnp.asarray(delta))
+    got = tfc._mhsa_packed(tp, torch.from_numpy(x), torch.from_numpy(delta),
+                           tfc._sinusoid_rel_pos(t, tenc.d_model, "cpu"), torch.from_numpy(lens),
+                           tenc)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=1e-5, rtol=1e-5)
+
+
+def _first(tree):
+    if isinstance(tree, dict):
+        return {k: _first(v) for k, v in tree.items()}
+    return tree[0]
+
+
 def _jax_tree(tree):
     import jax
 
@@ -105,7 +165,7 @@ def test_unported_settings_raise(setup):
     _, _, tenc, tr, tree = setup
     p = params_from_numpy(tree["encoder"])
     feats, lens = torch.zeros(1, 16, tenc.feat_in), torch.tensor([16])
-    for bad in (dict(lnd_impl="pallas"), dict(subsampling_style="conv2d"),
+    for bad in (dict(lnd_impl="triton"), dict(subsampling_style="conv2d"),
                 dict(conv_norm="layer_norm")):
         with pytest.raises(ValueError):
             tfc.fastconformer_encode(p, feats, lens, replace(tenc, **bad))

@@ -13,7 +13,8 @@ from reazonspeech_tpu.ops import beam_topk as jbt
 from reazonspeech_tpu.ops import conformer_conv as jcc
 from reazonspeech_tpu.ops import relpos_attention as jra
 from reazonspeech_tpu_torch.ops import (
-    fold_batch_norm, fused_conv_module, fused_conv_module_plain, relpos_attention_fused,
+    add_ln, fold_batch_norm, fused_conv_module, fused_conv_module_plain, ln_dense,
+    ln_dense_add, relpos_attention_fused, relpos_attention_fused_packed,
     relpos_attention_fused_plain, topm_logsoftmax, topm_logsoftmax_plain,
 )
 
@@ -158,10 +159,12 @@ def _meta(*shape, dtype=torch.bfloat16):
     return torch.empty(shape, dtype=dtype, device="meta")
 
 
-@pytest.mark.parametrize("op", ["attention", "conv", "topm"])
+@pytest.mark.parametrize("op", ["attention", "conv", "topm", "ln_dense", "ln_dense_add",
+                                "add_ln", "packed", "conv_ln"])
 def test_non_cpu_tensors_never_take_the_plain_twin(op):
     """A tensor that is not on the CPU goes to the kernel path, whose checks
     refuse anything but CUDA: there is no fallback."""
+    f32 = torch.float32
     with pytest.raises(ValueError, match="CUDA"):
         if op == "attention":
             relpos_attention_fused(_meta(1, 4, 32), _meta(1, 4, 32), _meta(1, 4, 32),
@@ -171,5 +174,22 @@ def test_non_cpu_tensors_never_take_the_plain_twin(op):
             fused_conv_module(_meta(1, 4, 64), _meta(1, dtype=torch.int32),
                               _meta(64, 128), _meta(128), _meta(9, 64), _meta(64),
                               _meta(64), _meta(64), _meta(64, 64), _meta(64))
+        elif op == "topm":
+            topm_logsoftmax(_meta(2, 11, dtype=f32), 4, 10)
+        elif op == "ln_dense":
+            ln_dense(_meta(1, 4, 64, dtype=f32), _meta(64, dtype=f32), _meta(64, dtype=f32),
+                     _meta(64, 64), _meta(64, dtype=f32))
+        elif op == "ln_dense_add":
+            ln_dense_add(_meta(1, 4, 64, dtype=f32), _meta(1, 4, 64), _meta(64, dtype=f32),
+                         _meta(64, dtype=f32), _meta(64, 64), _meta(64, dtype=f32))
+        elif op == "add_ln":
+            add_ln(_meta(1, 4, 64, dtype=f32), _meta(1, 4, 64), _meta(1, dtype=torch.int32),
+                   _meta(64, dtype=f32), _meta(64, dtype=f32))
+        elif op == "packed":
+            relpos_attention_fused_packed(_meta(1, 4, 96), _meta(7, 2, 16), _meta(2, 16),
+                                          _meta(2, 16), _meta(1, dtype=torch.int32), 2)
         else:
-            topm_logsoftmax(_meta(2, 11, dtype=torch.float32), 4, 10)
+            fused_conv_module(_meta(1, 4, 64, dtype=f32), _meta(1, dtype=torch.int32),
+                              _meta(64, 128), _meta(128), _meta(9, 64), _meta(64), _meta(64),
+                              _meta(64), _meta(64, 64), _meta(64), ln_scale=_meta(64),
+                              ln_bias=_meta(64), compute_dtype=torch.bfloat16)

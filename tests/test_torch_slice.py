@@ -1,7 +1,9 @@
 """The nemo-v2 slice end to end: the port against the JAX package on the same
 converted tree, at the slice's tiny configuration (fp32 compute, the kernel
-branches, ALSD beam 4 with the top-m kernel). Tokens, frames, counts and the
-TranscribeResult must be equal."""
+branches, ALSD beam 4 with the top-m kernel), with the LayerNorms done apart
+(lnd_impl="xla") and, for the batch and chunked entry points, fused into
+the kernels (lnd_impl="pallas", the GPU serving default). Tokens, frames,
+counts and the TranscribeResult must be equal."""
 
 from dataclasses import replace
 
@@ -29,17 +31,32 @@ from test_torch_parity import jax_params_numpy, randomize_norm_stats, tiny_confi
 
 
 @pytest.fixture(scope="module")
-def models(tmp_path_factory):
-    """(jax model, port model): both load one tree written by the JAX store."""
-    jenc, jr, tenc, tr = tiny_configs()
+def tree_path(tmp_path_factory):
+    jenc, jr, _, _ = tiny_configs()
     tree = randomize_norm_stats(jax_params_numpy(0, jenc, jr), seed=2)
     path = str(tmp_path_factory.mktemp("tree") / "model")
     save_param_tree(path, tree, {"flavor": "nemo"})
-    jm = jmodel.load_model(checkpoint=path, enc_cfg=jenc, rnnt_cfg=jr,
-                           decode_cfg=jbeam.BeamDecodeConfig(topk_impl="pallas"))
-    tm = tmodel.load_model("cpu", checkpoint=path, enc_cfg=tenc, rnnt_cfg=tr,
-                           decode_cfg=tbeam.BeamDecodeConfig(topk_impl="pallas"))
+    return path
+
+
+def _load_pair(path, lnd_impl):
+    """(jax model, port model): both load one tree written by the JAX store."""
+    jenc, jr, tenc, tr = tiny_configs()
+    jm = jmodel.load_model(checkpoint=path, enc_cfg=replace(jenc, lnd_impl=lnd_impl),
+                           rnnt_cfg=jr, decode_cfg=jbeam.BeamDecodeConfig(topk_impl="pallas"))
+    tm = tmodel.load_model("cpu", checkpoint=path, enc_cfg=replace(tenc, lnd_impl=lnd_impl),
+                           rnnt_cfg=tr, decode_cfg=tbeam.BeamDecodeConfig(topk_impl="pallas"))
     return jm, tm
+
+
+@pytest.fixture(scope="module")
+def models(tree_path):
+    return _load_pair(tree_path, "xla")
+
+
+@pytest.fixture(scope="module")
+def models_lnd(tree_path):
+    return _load_pair(tree_path, "pallas")
 
 
 def _wav(seconds, seed):
@@ -60,7 +77,16 @@ def _same_result(a, b):
 def test_asr_forward_matches_jax(models, monkeypatch):
     """A ragged batch: tokens, frames, counts and encoder lengths equal."""
     patch_interpret(monkeypatch)
-    jm, tm = models
+    _check_forward(*models)
+
+
+def test_asr_forward_lnd_pallas_matches_jax(models_lnd, monkeypatch):
+    """The same at lnd_impl="pallas" (every encoder kernel, the GPU default)."""
+    patch_interpret(monkeypatch)
+    _check_forward(*models_lnd)
+
+
+def _check_forward(jm, tm):
     lengths = np.array([64000, 41000, 12000], np.int32)
     wav = np.zeros((3, 64000), np.float32)
     for i, n in enumerate(lengths):
@@ -79,7 +105,15 @@ def test_transcribe_matches_jax(models, monkeypatch, seconds, chunk):
     """One short input and one chunked long-form input (3 overlapped chunks
     decoded as one batch): identical TranscribeResult."""
     patch_interpret(monkeypatch)
-    jm, tm = models
+    _check_transcribe(*models, seconds, chunk)
+
+
+def test_chunked_transcribe_lnd_pallas_matches_jax(models_lnd, monkeypatch):
+    patch_interpret(monkeypatch)
+    _check_transcribe(*models_lnd, 23.0, 10.0)
+
+
+def _check_transcribe(jm, tm, seconds, chunk):
     audio = audio_from_numpy(_wav(seconds, seed=7), 16000)
     cfg = TranscribeConfig(chunk_seconds=chunk, chunk_overlap_seconds=2.0)
     want = jax_transcribe(jm, audio, cfg)
@@ -186,7 +220,7 @@ def test_load_model_devices_and_defaults():
 
 def test_cuda_serving_config_is_the_slice():
     cfg = tmodel._cuda_serving_config(tiny_configs()[2])
-    assert (cfg.attn_impl, cfg.conv_impl, cfg.lnd_impl) == ("pallas", "pallas", "xla")
+    assert (cfg.attn_impl, cfg.conv_impl, cfg.lnd_impl) == ("pallas", "pallas", "pallas")
     assert (cfg.compute_dtype, cfg.residual_dtype) == ("bfloat16", "float32")
 
 
