@@ -7,24 +7,39 @@ Phases, each of which fails the run (nonzero exit, no result line):
 
 1. device: a CUDA device must be present; prints the card's name and power
    limit as nvidia-smi reports them;
-2. build: compiles the port's CUDA kernels from csrc/ (nvcc, sm_90a);
+2. build: compiles the port's CUDA kernels from csrc/ (nvcc, sm_90a, one
+   process per source, all started together);
 3. kernels: each kernel against its plain PyTorch twin at the shapes the
-   main path gives it (the 4 x 32 s bucket: B=4, T=401, D=1024), the two
-   kernels of the lnd_impl="xla" configuration also at an unaligned T=376,
-   with the tolerance stated beside each check, and both times (CUDA
-   events, after warm-up); the kernels' JSON line reports the T=401 runs;
-4. main path: load_model(device="cuda", checkpoint="random") in its GPU
+   main paths give it, with the tolerance stated beside each check and both
+   times (CUDA events after warm-up, and device time per call from
+   torch.profiler): the nemo encoder kernels at the
+   4 x 32 s bucket (B=4, T=401, D=1024; the lnd_impl="xla" pair also at an
+   unaligned T=376), the ALSD top-m, and the Zipformer shared attention at
+   the k2 shapes (stack 0 and stack 3 of a 4 x 32 s bucket, the nonlin
+   applications, and the streamed entry at the 64 s bucket's T=3196);
+4. nemo path: load_model(device="cuda", checkpoint="random") in its GPU
    serving configuration (lnd_impl="pallas": every encoder kernel) at the
    full xlarge width and depth (24 blocks, d=1024), transcribe_batch of
    4 x 30 s and a chunked transcribe of 70 s; then the earlier
    configuration (lnd_impl="xla", whose attention and conv kernels take
    separate q/k/v and a caller-side LayerNorm) at full width and 4 blocks
-   through one transcribe_batch. Launch counts are reset before and read
-   after each path, and every kernel of each path must have launched.
-   Then, on a short input: the encoder and the ALSD decode against the same
-   path with the plain twins in place of the kernels, and the encoder
-   against the lnd_impl="xla" configuration on the same weights;
-5. the kernels' JSON line, then the last line
+   through one transcribe_batch. Then, on a short input: the encoder and
+   the ALSD decode against the same path with the plain twins in place of
+   the kernels, and the encoder against the lnd_impl="xla" configuration on
+   the same weights;
+5. k2 path: asr.load_model(device="cuda", checkpoint="random") at the
+   published reazonspeech-k2-v2 shape (ZipformerConfig.large(), full width
+   and depth, attn_impl="pallas"), transcribe_batch of 4 x 30 s (every
+   stack through the single-pass entry) and a transcribe of 60 s (stack 0
+   past 2048 frames: the streamed entry); where the 4 x 30 s batch spends
+   its time (the encoder's device busy ms, device ops and largest items,
+   its CUDA-event ms and the greedy decode's, and the device busy share of
+   one profiled transcribe_batch); then, on a short input, the encoder
+   against the plain twins and against attn_impl="xla";
+   Launch counts are reset before and read after each path, and every
+   kernel of each path must have launched;
+6. the kernels' JSON line (each kernel's time, its plain twin's, the bound
+   of its work on this card, the launches on its path), then the last line
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 Imports no JAX. Runs in a few minutes, the build included.
@@ -49,6 +64,8 @@ REPLACES = {
     "add_ln": "reazonspeech_tpu/ops/ln_dense.py:300",
     "relpos_attention_fused_packed": "reazonspeech_tpu/ops/relpos_attention.py:402",
     "fused_conv_module_ln": "reazonspeech_tpu/ops/conformer_conv.py:98",
+    "shared_rel_attention": "reazonspeech_tpu/ops/zipformer_attention.py:69",
+    "shared_rel_attention_blockwise": "reazonspeech_tpu/ops/zipformer_attention.py:174",
 }
 SOURCES = {
     "relpos_attention_fused": "reazonspeech_tpu_torch/csrc/relpos_attention.cu",
@@ -59,11 +76,22 @@ SOURCES = {
     "add_ln": "reazonspeech_tpu_torch/csrc/ln_dense.cu",
     "relpos_attention_fused_packed": "reazonspeech_tpu_torch/csrc/relpos_attention.cu",
     "fused_conv_module_ln": "reazonspeech_tpu_torch/csrc/conformer_conv.cu",
+    "shared_rel_attention": "reazonspeech_tpu_torch/csrc/zipformer_attention.cu",
+    "shared_rel_attention_blockwise": "reazonspeech_tpu_torch/csrc/zipformer_attention.cu",
 }
 # the kernels each configuration's encoder and decoder launch
 SERVING_KERNELS = ("ln_dense", "ln_dense_add", "relpos_attention_fused_packed",
                    "fused_conv_module_ln", "add_ln", "topm_logsoftmax")
 EARLIER_KERNELS = ("relpos_attention_fused", "fused_conv_module", "topm_logsoftmax")
+K2_KERNELS = ("shared_rel_attention", "shared_rel_attention_blockwise")
+# published peaks of one H100 SXM (dense, from NVIDIA's H100 datasheet):
+# FLOP/s by operation type and HBM bytes/s. bound_ms is the larger of
+# the bytes a call must move (each input read once, each output written
+# once) over HBM_BYTES and its operations of each type over that type's
+# peak (the tensor cores and the CUDA cores run side by side, so the
+# times of two types are not added).
+PEAK_FLOPS = {"bf16": 989e12, "fp32": 67e12}
+HBM_BYTES = 3.35e12
 
 
 def log(msg):
@@ -90,6 +118,41 @@ def cuda_ms(fn, iters, warmup=3):
     return start.elapsed_time(end) / iters
 
 
+def device_items(fn, calls, tries=3):
+    """(name, device ms, launches) of every kernel that ``calls`` calls of
+    fn() run (torch.profiler, after one warm-up call), each divided by
+    ``calls``. A profile that records no device kernel (the tracer drops
+    one now and then) is taken again, up to ``tries`` times; then []."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        items = [(e.key, e.self_device_time_total / 1e3 / calls, e.count / calls)
+                 for e in prof.key_averages()
+                 if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+        if items:
+            return items
+    return []
+
+
+def device_ms(fn, calls):
+    """Device time of one fn() call in ms (every kernel it runs, summed),
+    or None where the profiler recorded no kernel."""
+    items = device_items(fn, calls)
+    return sum(ms for _, ms, _ in items) if items else None
+
+
+def fmt_ms(ms):
+    return "not measured" if ms is None else f"{ms:.4f}"
+
+
 def speech_like(seconds, seed):
     """Amplitude-modulated noise (as bench.py makes its inputs)."""
     rng = np.random.default_rng(seed)
@@ -99,6 +162,67 @@ def speech_like(seconds, seed):
 
 
 # --- phase 3: kernels against their plain twins ------------------------------
+
+
+def _tensors(xs):
+    """The tensors in a nest of tuples/lists."""
+    import torch
+
+    if isinstance(xs, torch.Tensor):
+        return [xs]
+    if isinstance(xs, (tuple, list)):
+        return [t for x in xs for t in _tensors(x)]
+    return []
+
+
+def bound_ms(flops, args, out):
+    """(ms, "bytes" | "operations"): the least time the card could take for
+    the call, the larger of its bytes (inputs ``args`` read once, outputs
+    ``out`` written once) over the HBM rate and its operations of each type
+    (``flops``, {type: count}) over that type's peak rate."""
+    moved = sum(t.numel() * t.element_size() for t in _tensors(args) + _tensors(out))
+    t_mem = moved / HBM_BYTES
+    t_ops = max(n / PEAK_FLOPS[kind] for kind, n in flops.items())
+    return max(t_mem, t_ops) * 1e3, ("operations" if t_ops > t_mem else "bytes")
+
+
+def _valid_keys(lengths, t):
+    """Key positions the rows' softmax needs: Σ min(length, T)."""
+    return float(lengths.clamp(max=t).sum().item())
+
+
+# FLOPs of each kernel's work on its inputs (the products on the tensor
+# cores as bf16, the rest on the CUDA cores as fp32)
+def flops_relpos(args, out):  # q·kᵀ, the (q+v)·pos band and p·v, every head
+    _, t, d = out.shape
+    return {"bf16": 2.0 * t * _valid_keys(args[-2], t) * d * 3}
+
+
+def flops_conv(args, out):  # GLU and output products, depthwise taps
+    b, t, d = out.shape
+    return {"bf16": 2.0 * b * t * d * 3 * d, "fp32": 2.0 * b * t * d * args[4].shape[0]}
+
+
+def flops_ln_dense(args, out, w_at=3):  # the projection (the LN is bytes)
+    x, w = args[0], args[w_at]
+    n = sum(t.shape[1] for t in _tensors(w))
+    return {"bf16": 2.0 * x.shape[0] * x.shape[1] * x.shape[2] * n}
+
+
+def flops_add_ln(args, out):  # add, two moments, normalise, affine
+    return {"fp32": 8.0 * out.numel()}
+
+
+def flops_topm(args, out):  # max, exp-sum and m masked argmax passes per row
+    logits, m = args[0], args[1]
+    return {"fp32": (3.0 + m) * logits.numel()}
+
+
+def flops_shared(args, out):  # the T² products q·kᵀ, qp·pos and p·v, all bf16 operands
+    q, qp, lengths = args[0], args[2], args[5]
+    g, t, qd = q.shape
+    keys = _valid_keys(lengths, t)
+    return {"bf16": 2.0 * t * keys * (qd + qp.shape[-1] + out.shape[-1])}
 
 
 def kernel_checks(dev):
@@ -123,7 +247,8 @@ def kernel_checks(dev):
     bu, bv = rand(h, d // h, scale=0.1, dtype=f32), rand(h, d // h, scale=0.1, dtype=f32)
     args = (q, kk, v, pos, bu, bv, lengths, h)
     _compare("relpos_attention_fused", ops.relpos_attention_fused,
-             ops.relpos_attention_fused_plain, args, atol=0.03, iters=20, label="T=376")
+             ops.relpos_attention_fused_plain, args, atol=0.03, iters=20, label="T=376",
+             flops=flops_relpos)
 
     # conv module: fp32 inside both; bf16 rounding of y and of the output can
     # land one ulp apart where the fp32 sums differ in order
@@ -133,18 +258,18 @@ def kernel_checks(dev):
             1.0 + rand(d, scale=0.1, dtype=f32), rand(d, scale=0.1, dtype=f32),
             rand(d, d, scale=d ** -0.5, dtype=f32), rand(d, scale=0.1, dtype=f32))
     _compare("fused_conv_module", ops.fused_conv_module, ops.fused_conv_module_plain, args,
-             atol=0.03, iters=20, label="T=376")
+             atol=0.03, iters=20, label="T=376", flops=flops_conv)
 
     # top-m: fp32 sums in another order (1e-4); indices exactly, ties included
     logits = rand(16, 3001, scale=3.0, dtype=f32)
     rows = [_compare("topm_logsoftmax", ops.topm_logsoftmax, ops.topm_logsoftmax_plain,
-                     (logits, 4, 3000), atol=1e-4, iters=200)]
+                     (logits, 4, 3000), atol=1e-4, iters=200, flops=flops_topm)]
     ties = torch.randint(-3, 4, (16, 3001), generator=gen).to(device=dev, dtype=f32)
     got, want = ops.topm_logsoftmax(ties, 4, 3000), ops.topm_logsoftmax_plain(ties, 4, 3000)
     torch.cuda.synchronize()
     check(torch.equal(got[2], want[2]), "topm_logsoftmax: tie order differs from the plain twin")
     log("topm_logsoftmax integer-tie case: indices equal")
-    return rows + bucket_kernel_checks(rand, dev)
+    return rows + bucket_kernel_checks(rand, dev) + shared_attention_checks(rand, dev)
 
 
 def bf16_tol(want):
@@ -174,7 +299,8 @@ def bucket_kernel_checks(rand, dev):
     w_ffn, c_ffn = rand(d, 4 * d, scale=0.5 * d ** -0.5), rand(4 * d, scale=0.1, dtype=f32)
     args = (x, g, beta, w_ffn, c_ffn)
     rows.append(_compare("ln_dense", ops.ln_dense, ops.ln_dense_plain, args, "bf16",
-                         iters=20, kwargs=dict(activation="swish"), label="FFN-in"))
+                         iters=20, kwargs=dict(activation="swish"), label="FFN-in",
+                         flops=flops_ln_dense))
     xn = layer_norm_fp32(x, g, beta).to(bf16)
     log(f"ln_dense FFN-in: the bare cuBLAS bf16 product [1604, 1024] x [1024, 4096] takes "
         f"{cuda_ms(lambda: torch.matmul(xn, w_ffn), 20):.4f} ms")
@@ -182,15 +308,16 @@ def bucket_kernel_checks(rand, dev):
     w_qkv = tuple(rand(d, d, scale=0.5 * d ** -0.5) for _ in range(3))
     c_qkv = tuple(rand(d, scale=0.1, dtype=f32) for _ in range(3))
     _compare("ln_dense", ops.ln_dense, ops.ln_dense_plain, (x, g, beta, w_qkv, c_qkv), "bf16",
-             iters=20, label="q/k/v")
+             iters=20, label="q/k/v", flops=flops_ln_dense)
     # the ffn1 residual add fused into the q/k/v projection
     delta = rand(b, t, d)
     rows.append(_compare("ln_dense_add", ops.ln_dense_add, ops.ln_dense_add_plain,
                          (x, delta, g, beta, w_qkv, c_qkv), ("bf16", 1e-5), iters=20,
-                         kwargs=dict(scale=0.5)))
+                         kwargs=dict(scale=0.5),
+                         flops=lambda a, o: flops_ln_dense(a, o, w_at=4)))
     # the block tail: fp32 LN of r + 0.5·y, ragged lengths
     rows.append(_compare("add_ln", ops.add_ln, ops.add_ln_plain, (x, delta, lengths, g, beta),
-                         1e-4, iters=20, kwargs=dict(scale=0.5)))
+                         1e-4, iters=20, kwargs=dict(scale=0.5), flops=flops_add_ln))
     padded = ops.add_ln(x, delta, lengths, g, beta, scale=0.5)
     valid = torch.arange(t, device=dev)[None, :] < lengths[:, None]
     check(not padded[~valid].any().item(), "add_ln: a row past its length is not zero")
@@ -200,7 +327,7 @@ def bucket_kernel_checks(rand, dev):
     bu, bv = rand(h, d // h, scale=0.1, dtype=f32), rand(h, d // h, scale=0.1, dtype=f32)
     rows.append(_compare("relpos_attention_fused_packed", ops.relpos_attention_fused_packed,
                          ops.relpos_attention_fused_packed_plain,
-                         (qkv, pos, bu, bv, lengths, h), 0.03, iters=20))
+                         (qkv, pos, bu, bv, lengths, h), 0.03, iters=20, flops=flops_relpos))
     # conv module with its LayerNorm inside, on the raw stream
     args = (x, lengths, rand(d, 2 * d, scale=d ** -0.5, dtype=f32),
             rand(2 * d, scale=0.1, dtype=f32), rand(k, 1, d, scale=k ** -0.5, dtype=f32),
@@ -209,29 +336,84 @@ def bucket_kernel_checks(rand, dev):
             rand(d, scale=0.1, dtype=f32))
     rows.append(_compare("fused_conv_module_ln", ops.fused_conv_module,
                          ops.fused_conv_module_plain, args, 0.03, iters=20,
-                         kwargs=dict(ln_scale=g, ln_bias=beta, compute_dtype=bf16)))
+                         kwargs=dict(ln_scale=g, ln_bias=beta, compute_dtype=bf16),
+                         flops=flops_conv))
     # lnd_impl="xla": the same conv module on the caller's bf16 LayerNorm
     # output, and attention on separate q, k, v (tolerances as at T=376)
     rows.append(_compare("fused_conv_module", ops.fused_conv_module,
-                         ops.fused_conv_module_plain, (xn,) + args[1:], 0.03, iters=20))
+                         ops.fused_conv_module_plain, (xn,) + args[1:], 0.03, iters=20,
+                         flops=flops_conv))
     q, kk, v = (rand(b, t, d, scale=0.5) for _ in range(3))
     rows.append(_compare("relpos_attention_fused", ops.relpos_attention_fused,
                          ops.relpos_attention_fused_plain, (q, kk, v, pos, bu, bv, lengths, h),
-                         0.03, iters=20))
+                         0.03, iters=20, flops=flops_relpos))
     return rows
 
 
-def _compare(name, kernel, plain, args, atol, iters, kwargs=None, label=None):
+# Tolerance of the shared attention against its twins (fp32 out): both round
+# the probabilities to bf16 at the same points (the single-pass entry after
+# normalising, the streamed one per 64-key tile, the twin given block=64),
+# so they differ only where an fp32 sum order or an expf ulp moves a
+# probability across a bf16 rounding boundary: one bf16 ulp (<= 2^-9 of a
+# probability <= 1/2) times |v| <= ~4 on a few keys.
+SHARED_ATOL = 2e-3
+
+
+def shared_attention_checks(rand, dev):
+    """The Zipformer shared attention at the k2 main path's shapes
+    (ZipformerConfig.large(): qd=32, pd=4, value head 12): per-head
+    applications of stack 0 (G = 4 x 4 heads, T=1596) and stack 3 (G = 4 x 8,
+    T=200) of the 4 x 32 s bucket, the nonlin applications of stack 0 (D=192:
+    dv=144) and stack 3 (D=768: dv=576) with heads=1, and the streamed entry
+    at the 64 s bucket's stack 0 (T=3196, one utterance: G = 4 heads, and
+    its nonlin G=1, dv=144). Ragged lengths, 1 included."""
+    import torch
+
+    from reazonspeech_tpu_torch import ops
+
+    def inputs(g, t, dv, heads, lens):
+        lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+        return (rand(g, t, 32, scale=0.5), rand(g, t, 32, scale=0.5), rand(g, t, 4),
+                rand(heads, 2 * t - 1, 4), rand(g, t, dv), lengths)
+
+    def ragged(g, t):
+        return [t, 1] + [max(1, t - 37 * i) for i in range(2, g)]
+
+    single = (ops.shared_rel_attention, ops.shared_rel_attention_plain)
+    rows = []
+    for label, g, t, dv, heads, iters in (("stack 0", 16, 1596, 12, 4, 10),
+                                          ("stack 3", 32, 200, 12, 8, 20),
+                                          ("nonlin stack 0", 4, 1596, 144, 1, 10),
+                                          ("nonlin stack 3", 4, 200, 576, 1, 20)):
+        row = _compare("shared_rel_attention", *single, inputs(g, t, dv, heads, ragged(g, t)),
+                       SHARED_ATOL, iters=iters, kwargs=dict(heads=heads), label=label,
+                       flops=flops_shared)
+        rows += [row] if label == "stack 0" else []
+    for label, g, dv, heads in (("T=3196", 4, 12, 4), ("nonlin T=3196", 1, 144, 1)):
+        row = _compare("shared_rel_attention_blockwise", ops.shared_rel_attention_blockwise,
+                       ops.shared_rel_attention_blockwise_plain,
+                       inputs(g, 3196, dv, heads, ragged(g, 3196) if g > 1 else [3196]),
+                       SHARED_ATOL, iters=5, label=label, flops=flops_shared,
+                       kwargs=dict(heads=heads), plain_kwargs=dict(block=64))
+        rows += [row] if label == "T=3196" else []
+    return rows
+
+
+def _compare(name, kernel, plain, args, atol, iters, *, flops, kwargs=None, label=None,
+             plain_kwargs=None):
     """Kernel against plain twin on the same inputs, then both timed.
     ``atol``: the max abs error allowed, "bf16" for :func:`bf16_tol`, or a
     tuple of those, one per output; ``label``: the shape, where a kernel is
-    checked at more than one."""
+    checked at more than one; ``flops(args, out)``: the call's operations
+    for its bound; ``plain_kwargs``: extra arguments of the twin only."""
     import torch
 
     kwargs = kwargs or {}
+    twin_kwargs = {**kwargs, **(plain_kwargs or {})}
     what = f"{name} ({label})" if label else name
-    got, want = kernel(*args, **kwargs), plain(*args, **kwargs)
+    got, want = kernel(*args, **kwargs), plain(*args, **twin_kwargs)
     torch.cuda.synchronize()
+    bound, bound_by = bound_ms(flops(args, got), args, got)
     if name == "topm_logsoftmax":  # indices must be equal, values within atol
         check(torch.equal(got[2], want[2]), f"{what}: indices differ from the plain twin")
         got, want, atol = got[:2], want[:2], (atol, atol)
@@ -247,14 +429,22 @@ def _compare(name, kernel, plain, args, atol, iters, kwargs=None, label=None):
         errs.append(err)
         stated.append(f"{err:.3g} (tol {tol:.3g})")
     ms = cuda_ms(lambda: kernel(*args, **kwargs), iters)
-    plain_ms = cuda_ms(lambda: plain(*args, **kwargs), iters)
-    log(f"{what}: max_abs_err {', '.join(stated)}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+    plain_ms = cuda_ms(lambda: plain(*args, **twin_kwargs), iters)
+    dev_ms = device_ms(lambda: kernel(*args, **kwargs), iters)
+    plain_dev_ms = device_ms(lambda: plain(*args, **twin_kwargs), max(1, iters // 4))
+    log(f"{what}: max_abs_err {', '.join(stated)}; events ms kernel {ms:.4f}, plain "
+        f"{plain_ms:.4f}; device ms kernel {fmt_ms(dev_ms)}, plain {fmt_ms(plain_dev_ms)}; "
+        f"bound {bound:.4f} ms ({bound_by})")
+    # library_ms: no single PyTorch call computes any of these functions on
+    # these inputs (each is a chain: a norm then a product, scores with a
+    # relative-position band, a log-softmax then a top-m)
     return {"name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": REPLACES[name], "launches": 0, "max_abs_err": max(errs),
-            "ms": ms, "plain_ms": plain_ms}
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by,
+            "library_ms": None}
 
 
-# --- phase 4: the main path ---------------------------------------------------
+# --- phases 4 and 5: the nemo and k2 paths ------------------------------------
 
 
 @contextlib.contextmanager
@@ -263,10 +453,12 @@ def plain_twins():
     from reazonspeech_tpu_torch import ops
     from reazonspeech_tpu_torch.decoding import rnnt_beam
     from reazonspeech_tpu_torch.models import fastconformer as fc
+    from reazonspeech_tpu_torch.models import zipformer as zf
 
     targets = [(fc, name) for name in (
         "ln_dense", "ln_dense_add", "add_ln", "relpos_attention_fused",
         "relpos_attention_fused_packed", "fused_conv_module")] + [(rnnt_beam, "topm_logsoftmax")]
+    targets += [(zf, name) for name in K2_KERNELS]
     saved = [(mod, name, getattr(mod, name)) for mod, name in targets]
     for mod, name in targets:
         setattr(mod, name, getattr(ops, name + "_plain"))
@@ -346,7 +538,8 @@ def main_path(dev, name):
     del earlier
 
     reference_check(model)
-    return {k: (counts[k] if k in SERVING_KERNELS else earlier_counts[k]) for k in counts}
+    return {k: (counts[k] if k in SERVING_KERNELS else earlier_counts[k])
+            for k in SERVING_KERNELS + EARLIER_KERNELS}
 
 
 def reference_check(model):
@@ -393,6 +586,171 @@ def reference_check(model):
     log(f"ALSD with the top-m kernel == with its plain twin: counts {got[2].tolist()}")
 
 
+def check_k2_results(results, durations):
+    """Text, and subwords in order on the 0.04 s grid within the padded input."""
+    for r, dur in zip(results, durations):
+        secs = [s.seconds for s in r.subwords]
+        check(isinstance(r.text, str), "k2: text is not a string")
+        check(secs == sorted(secs) and all(0 <= s <= dur + 1.8 for s in secs),
+              f"k2: subword times out of order or range: {secs[:8]}")
+        check(all(abs(s / 0.04 - round(s / 0.04)) < 1e-6 for s in secs),
+              f"k2: subword times off the 0.04 s grid: {secs[:8]}")
+
+
+def k2_path(name):
+    """The k2 flavor at the published reazonspeech-k2-v2 shape: 4 x 30 s in
+    one batch (the 32 s bucket: stack 0 at T=1596, single-pass entry) and a
+    60 s transcribe (the 64 s bucket: stack 0 at T=3196, streamed entry)."""
+    import torch
+
+    from reazonspeech_tpu_torch import ops
+    from reazonspeech_tpu_torch.k2 import asr
+
+    t0 = time.perf_counter()
+    model = asr.load_model(device="cuda", checkpoint="random")
+    torch.cuda.synchronize()
+    cfg = model.enc_cfg
+    log(f"k2 load_model: {time.perf_counter() - t0:.1f} s; layers {cfg.num_layers}, "
+        f"dims {cfg.encoder_dim}, heads {cfg.num_heads}, attn={cfg.attn_impl}, "
+        f"{cfg.compute_dtype}/{cfg.residual_dtype}, predictor {model.rnnt_cfg.predictor_kind}, "
+        f"vocab {model.rnnt_cfg.vocab_size}")
+    large = asr.model.ZipformerConfig.large()
+    check((cfg.num_layers, cfg.downsampling, cfg.encoder_dim, cfg.num_heads) ==
+          (large.num_layers, large.downsampling, large.encoder_dim, large.num_heads),
+          "k2: not the large width and depth")
+    check((cfg.attn_impl, cfg.compute_dtype, cfg.residual_dtype) ==
+          ("pallas", "bfloat16", "float32"), "k2 load_model on CUDA is not the serving config")
+
+    batch = [asr.audio_from_numpy(speech_like(30.0, seed=30 + i), SR) for i in range(4)]
+    long_form = asr.audio_from_numpy(speech_like(60.0, seed=39), SR)
+    asr.transcribe_batch(model, batch[:1])  # warm-up
+    torch.cuda.synchronize()
+
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    res_batch = asr.transcribe_batch(model, batch)
+    t1 = time.perf_counter()
+    res_long = asr.transcribe(model, long_form)
+    t2 = time.perf_counter()
+    counts = ops.launch_counts()
+    log(f"k2 path: launch counts {counts}")
+    check(all(counts[k] > 0 for k in K2_KERNELS), f"a k2 kernel was not launched: {counts}")
+    check_k2_results(res_batch, [30.0] * 4)
+    check_k2_results([res_long], [60.0])
+    log(f"k2 transcribe_batch 4 x 30 s: {t1 - t0:.3f} s wall, {120.0 / (t1 - t0):.2f} "
+        f"audio-s/s on {name}")
+    log(f"k2 transcribe 60 s: {t2 - t1:.3f} s wall, {60.0 / (t2 - t1):.2f} audio-s/s on {name}")
+    log(f"k2 subwords: batch {[len(r.subwords) for r in res_batch]}, "
+        f"long {len(res_long.subwords)}")
+    k2_profile(model, batch, t1 - t0)
+    k2_reference_check(model)
+    return {k: counts[k] for k in K2_KERNELS}
+
+
+def k2_profile(model, batch, wall_s):
+    """Where the k2 4 x 30 s batch spends its time: the encoder's device
+    busy ms, device ops and largest items (torch.profiler, 3 encodes), its
+    CUDA-event ms (median of 5) and the greedy decode's; then the device
+    busy time of one profiled transcribe_batch, over its own wall time and
+    over ``wall_s``, the wall time of the unprofiled call."""
+    import statistics
+
+    import torch
+
+    from reazonspeech_tpu_torch.decoding.rnnt_greedy import rnnt_greedy_decode
+    from reazonspeech_tpu_torch.frontend.features import log_mel_spectrogram
+    from reazonspeech_tpu_torch.k2 import asr
+    from reazonspeech_tpu_torch.k2.asr.transcribe import PAD_SECONDS
+    from reazonspeech_tpu_torch.models.zipformer import zipformer_encode
+
+    pad = int(PAD_SECONDS * SR)
+    n = max(len(a.waveform) for a in batch) + 2 * pad
+    bucket = asr.model.BUCKET_SAMPLES
+    buf = np.zeros((len(batch), -(-n // bucket) * bucket), np.float32)
+    for i, a in enumerate(batch):
+        buf[i, pad:pad + len(a.waveform)] = a.waveform
+    p = model.params
+    with torch.inference_mode():
+        wav = torch.from_numpy(buf).to(model.device)
+        lens = torch.tensor([len(a.waveform) + 2 * pad for a in batch], dtype=torch.int32,
+                            device=model.device)
+        feats, fl = log_mel_spectrogram(wav, lens, model.fe_cfg)
+
+        def encode():
+            return zipformer_encode(p["encoder"], feats, fl, model.enc_cfg)
+
+        items = device_items(encode, 3)
+        enc_ms = statistics.median(cuda_ms(encode, 1, warmup=0) for _ in range(5))
+        enc, el = encode()
+        dec_ms = cuda_ms(lambda: rnnt_greedy_decode(p["predictor"], p["joint"], enc, el,
+                                                    model.rnnt_cfg, model.decode_cfg), 1, warmup=1)
+    check(items, "k2: the profiler recorded no device kernel in the encoder")
+    busy = sum(ms for _, ms, _ in items)
+    log(f"k2 encoder 4 x 30 s ({feats.shape[1]} fbank frames): device busy {busy:.3f} ms, "
+        f"{sum(c for _, _, c in items):.0f} device ops; CUDA events {enc_ms:.3f} ms "
+        f"(median of 5); greedy decode {dec_ms:.3f} ms (events)")
+    for key, ms, calls in sorted(items, key=lambda x: -x[1])[:12]:
+        log(f"k2 encoder item: {ms:.3f} ms x{calls:.0f} {key[:100]}")
+    walls = []
+
+    def timed_call():
+        t0 = time.perf_counter()
+        asr.transcribe_batch(model, batch)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+
+    busy = device_ms(timed_call, 1)  # walls: the warm-up call, then the profiled one(s)
+    check(busy is not None, "k2: the profiler recorded no device kernel in transcribe_batch")
+    log(f"k2 transcribe_batch 4 x 30 s: {busy:.1f} ms device busy; the device is busy "
+        f"{100 * busy / (walls[-1] * 1e3):.1f} % of the profiled call ({walls[-1] * 1e3:.1f} ms "
+        f"wall), {100 * busy / (wall_s * 1e3):.1f} % of the unprofiled one ({wall_s * 1e3:.1f} ms)")
+
+
+def k2_reference_check(model):
+    """A short batch (5 s and 3 s) through the k2 encoder: with the kernels
+    against the same encoder with the plain twins, and against
+    attn_impl="xla" (the materialized [B, H, T, T] weights) on the same
+    weights; then the streamed entry forced at every stack against
+    attn_impl="xla". bf16 compute over 19 layers: the paths differ only in
+    where bf16 rounds (relative L2 <= 5e-2 on the valid frames)."""
+    from dataclasses import replace
+
+    import torch
+
+    from reazonspeech_tpu_torch.frontend.features import log_mel_spectrogram
+    from reazonspeech_tpu_torch.models import zipformer as zf
+
+    wav = np.stack([speech_like(5.0, seed=40), speech_like(5.0, seed=41)])
+    wav[1, 3 * SR:] = 0.0
+    params = model.params["encoder"]
+    with torch.inference_mode():
+        w = torch.from_numpy(wav).to(model.device)
+        lens = torch.tensor([5 * SR, 3 * SR], dtype=torch.int32, device=model.device)
+        feats, fl = log_mel_spectrogram(w, lens, model.fe_cfg)
+        enc, el = zf.zipformer_encode(params, feats, fl, model.enc_cfg)
+        check(bool(torch.isfinite(enc).all()), "k2: non-finite encoder output")
+        valid = (torch.arange(enc.shape[1], device=enc.device)[None, :] < el[:, None])[..., None]
+
+        def rel_l2(a, ref):
+            return ((a - ref) * valid).norm().item() / (ref * valid).norm().item()
+
+        with plain_twins():
+            twins, _ = zf.zipformer_encode(params, feats, fl, model.enc_cfg)
+        xla, _ = zf.zipformer_encode(params, feats, fl, replace(model.enc_cfg, attn_impl="xla"))
+        dispatch = zf._shared_attn_kernel
+        zf._shared_attn_kernel = lambda t: zf.shared_rel_attention_blockwise
+        try:
+            streamed, _ = zf.zipformer_encode(params, feats, fl, model.enc_cfg)
+        finally:
+            zf._shared_attn_kernel = dispatch
+    for what, a, ref in (("kernels vs plain twins", enc, twins),
+                         ("attn_impl=pallas vs attn_impl=xla", enc, xla),
+                         ("streamed entry forced vs attn_impl=xla", streamed, xla)):
+        rel = rel_l2(a, ref)
+        log(f"k2 encoder, {what}: relative L2 {rel:.3g} (tol 5e-2)")
+        check(rel <= 5e-2, f"k2 encoder {what}: relative L2 {rel}")
+
+
 def main():
     import torch
 
@@ -419,6 +777,7 @@ def main():
 
     rows = kernel_checks(dev)
     counts = main_path(dev, f"{smi}")
+    counts.update(k2_path(f"{smi}"))
     for row in rows:
         row["launches"] = counts[row["name"]]
     print(json.dumps({"kernels": rows}), flush=True)

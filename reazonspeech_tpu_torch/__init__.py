@@ -5,18 +5,22 @@ and never ``jax``; it mirrors the reference's layout so every module has a
 counterpart of the same name, and it reads the same native param trees
 (``convert/store.py``).
 
-Ported so far: the nemo-v2 serving path —
+Ported so far: the nemo-v2 and k2 serving paths —
 
-    frontend/features.py        log-mel (nemo preset)
-    models/fastconformer.py     FastConformer encoder
-    models/rnnt.py              LSTM predictor + joint
+    frontend/features.py        log-mel (nemo and kaldi presets)
+    models/fastconformer.py     FastConformer encoder (nemo-v2)
+    models/zipformer.py         Zipformer2 encoder (k2)
+    models/rnnt.py              LSTM and stateless predictors + joint
     decoding/rnnt_beam.py       ALSD beam search
     decoding/rnnt_greedy.py     label-looping greedy decode
-    nemo/asr/                   load_model / transcribe / transcribe_batch / cli
+    nemo/asr/, k2/asr/          load_model / transcribe / transcribe_batch / cli
+    core/                       copies of the JAX package's jax-free core
 
-with three hand-written Hopper kernels under ``csrc/`` (rel-pos attention,
-the Conformer conv module, and the beam search's log-softmax + top-m),
-each beside a plain PyTorch twin in ``ops/``.
+with hand-written Hopper kernels under ``csrc/`` (rel-pos attention, the
+Conformer conv module, the LayerNorm-fused projections and residual tail,
+the beam search's log-softmax + top-m, and the Zipformer shared attention),
+each beside a plain PyTorch twin in ``ops/``. Entry points run on the GPU
+unless given ``device="cpu"``.
 """
 
 __version__ = "0.1.0"

@@ -6,6 +6,11 @@ iteration advances every element by one encoder frame (blank, or after
 so the joint runs T + U times per utterance. The loop body is fixed-shape
 tensor ops; finished elements are frozen by masks, and the host checks for
 termination once every ``CHECK_EVERY`` iterations. Runs no kernel.
+
+The predictor state is either an LSTM ``(h, c)`` pair ([L, B, H] each) or
+the stateless predictor's [B, context_size-1] token context; the loop keeps
+it batch-leading (the reference's ``_state_to_bl`` / ``_state_from_bl``) so
+that one row mask updates either form.
 """
 
 from dataclasses import dataclass
@@ -29,6 +34,19 @@ class GreedyDecodeConfig:
     max_symbols_per_step: int = 10
     max_tokens: int = 0  # 0 -> T
     frame_window: int = 1  # blank-run skipping is not ported yet
+
+
+def _state_to_bl(pred_state, cfg: RNNTConfig):
+    """The predictor's state with the batch leading, as a tuple of tensors."""
+    if cfg.predictor_kind == "stateless":
+        return (pred_state,)
+    return tuple(x.transpose(0, 1) for x in pred_state)
+
+
+def _state_from_bl(state, cfg: RNNTConfig):
+    if cfg.predictor_kind == "stateless":
+        return state[0]
+    return tuple(x.transpose(0, 1) for x in state)
 
 
 def rnnt_greedy_decode(pred_params, joint_params, enc, enc_lengths, rnnt_cfg: RNNTConfig,
@@ -61,8 +79,9 @@ def rnnt_greedy_decode(pred_params, joint_params, enc, enc_lengths, rnnt_cfg: RN
     time_idx = torch.zeros((b,), **i32)
     sym_at_frame = torch.zeros((b,), **i32)
     last_tok = torch.full((b,), blank, **i32)
-    pred_out, (ph, pc) = predictor_step(
+    pred_out, pred_state = predictor_step(
         pred_params, last_tok, predictor_zero_state(b, rnnt_cfg, dev), rnnt_cfg)
+    pred_state = _state_to_bl(pred_state, rnnt_cfg)
 
     def active():
         return (time_idx < enc_lengths) & (counts < emit_cap)
@@ -89,10 +108,12 @@ def rnnt_greedy_decode(pred_params, joint_params, enc, enc_lengths, rnnt_cfg: RN
             sym_at_frame = torch.where(advance, 0, sym_at_frame)
 
             last_tok = torch.where(emit, tok, last_tok)
-            step_out, (sh, sc) = predictor_step(pred_params, last_tok, (ph, pc), rnnt_cfg)
+            step_out, step_state = predictor_step(
+                pred_params, last_tok, _state_from_bl(pred_state, rnnt_cfg), rnnt_cfg)
             pred_out = torch.where(emit[:, None], step_out, pred_out)
-            ph = torch.where(emit[None, :, None], sh, ph)
-            pc = torch.where(emit[None, :, None], sc, pc)
+            pred_state = tuple(
+                torch.where(emit.reshape((-1,) + (1,) * (new.ndim - 1)), new, old)
+                for new, old in zip(_state_to_bl(step_state, rnnt_cfg), pred_state))
             it += 1
         if not bool(active().any()):
             break

@@ -1,20 +1,26 @@
-"""Log-mel feature extraction (PyTorch), nemo preset.
+"""Log-mel feature extraction (PyTorch): the nemo and kaldi presets.
 
-Port of ``reazonspeech_tpu.frontend.features`` for NeMo's mel preprocessor:
-global pre-emphasis 0.97, symmetric hann window, centered reflect-padded
-STFT, power 2, slaney/slaney mel, ``log(x + 2^-24)`` and per-feature
-normalization over the valid frames.
+Port of ``reazonspeech_tpu.frontend.features``.
 
-The DFT is the reference's block matmul (``_dft_blockmm``): after slicing at
-the first frame's start, frame t begins at t·hop, so the signal reshaped to
-[B, nblocks, hop] makes frame t the concatenation of blocks t..t+nj-1, and
-the windowed DFT is ceil(win/hop) shifted dense matmuls against the cos/sin
-bases. Everything is fp32, with TF32 switched off: the spectrum spans ~8
-orders of magnitude and feeds a log, and the reference runs it at
-``Precision.HIGHEST``.
+- **nemo** (NeMo's mel preprocessor): global pre-emphasis 0.97, symmetric
+  hann window, centered reflect-padded STFT, power 2, slaney/slaney mel,
+  ``log(x + 2^-24)`` and per-feature normalization over the valid frames.
+  The DFT is the reference's block matmul (``_dft_blockmm``): after slicing
+  at the first frame's start, frame t begins at t·hop, so the signal
+  reshaped to [B, nblocks, hop] makes frame t the concatenation of blocks
+  t..t+nj-1, and the windowed DFT is ceil(win/hop) shifted dense matmuls
+  against the cos/sin bases.
+- **kaldi** (kaldi-native-fbank as sherpa configures it for the k2 models):
+  ``snip_edges=False`` framing (frame t centred at t·hop + hop/2, symmetric
+  padding at the edges), per-frame DC removal and pre-emphasis, povey
+  window, HTK mel triangles in mel space, ``log(max(x, eps))``, no
+  normalization. Per-frame preprocessing needs the frames themselves, so
+  they are cut out (``unfold``) and multiplied by the bases.
 
-The kaldi and espnet presets come with their flavors; settings this module
-does not implement raise ``ValueError``.
+Everything is fp32, with TF32 switched off: the spectrum spans ~8 orders of
+magnitude and feeds a log, and the reference runs it at
+``Precision.HIGHEST``. Settings this module does not implement (the espnet
+preset's periodic window, other powers) raise ``ValueError``.
 """
 
 import functools
@@ -27,7 +33,8 @@ import torch.nn.functional as F
 
 from .mel import mel_filterbank
 
-__all__ = ["FrontendConfig", "nemo_frontend_config", "log_mel_spectrogram", "num_frames"]
+__all__ = ["FrontendConfig", "kaldi_frontend_config", "log_mel_spectrogram",
+           "nemo_frontend_config", "num_frames"]
 
 
 @dataclass(frozen=True)
@@ -61,17 +68,48 @@ def nemo_frontend_config(**overrides) -> FrontendConfig:
     return FrontendConfig(**overrides)
 
 
+def kaldi_frontend_config(**overrides) -> FrontendConfig:
+    """kaldi-native-fbank semantics as configured by sherpa for the k2 models:
+    per-frame DC removal + preemph, povey window, snip_edges=False framing,
+    HTK mel triangles computed in mel space, no norm, log with float-eps clamp,
+    no feature normalization."""
+    cfg = dict(
+        preemph=0.97,
+        preemph_mode="frame",
+        window="povey",
+        framing="kaldi",
+        remove_dc=True,
+        mel_scale="htk",
+        mel_norm=None,
+        mel_triangle_domain="mel",
+        fmin=20.0,
+        log_zero_guard=float(np.finfo(np.float32).eps),
+        log_zero_guard_type="clamp",
+        normalize=None,
+    )
+    cfg.update(overrides)
+    return FrontendConfig(**cfg)
+
+
 def _check_supported(cfg: FrontendConfig):
-    if cfg.framing != "center":
-        raise ValueError(f"framing={cfg.framing!r} is not ported (nemo preset only)")
-    if cfg.remove_dc or (cfg.preemph is not None and cfg.preemph_mode != "global"):
-        raise ValueError("per-frame preprocessing is not ported (nemo preset only)")
-    if cfg.window != "hann":
-        raise ValueError(f"window={cfg.window!r} is not ported (nemo preset only)")
-    if cfg.mag_power != 2.0 or cfg.log_zero_guard_type != "add":
-        raise ValueError("only power 2 and an additive log guard are ported")
+    if cfg.framing not in ("center", "kaldi"):
+        raise ValueError(f"framing={cfg.framing!r} is not ported")
+    if cfg.preemph is not None and cfg.preemph_mode not in ("global", "frame"):
+        raise ValueError(f"preemph_mode={cfg.preemph_mode!r} is not ported")
+    if cfg.window not in ("hann", "povey"):
+        raise ValueError(f"window={cfg.window!r} is not ported (nemo and kaldi presets)")
+    if cfg.mag_power != 2.0:
+        raise ValueError("only power 2 is ported")
+    if cfg.log_zero_guard_type not in ("add", "clamp"):
+        raise ValueError(f"log_zero_guard_type={cfg.log_zero_guard_type!r} is not ported")
     if cfg.normalize not in ("per_feature", None):
         raise ValueError(f"normalize={cfg.normalize!r} is not ported")
+
+
+def _make_window(cfg: FrontendConfig) -> np.ndarray:
+    n = cfg.win_length
+    hann = 0.5 - 0.5 * np.cos(2 * np.pi * np.arange(n) / (n - 1))
+    return hann**0.85 if cfg.window == "povey" else hann
 
 
 @functools.lru_cache(maxsize=16)
@@ -79,7 +117,7 @@ def _constants(cfg: FrontendConfig):
     """Windowed DFT bases [win, 2·n_bins] and the mel matrix [n_bins, n_mels]
     (host numpy, float32), built exactly as the reference builds them."""
     n = cfg.win_length
-    window = 0.5 - 0.5 * np.cos(2 * np.pi * np.arange(n) / (n - 1))
+    window = _make_window(cfg)
     n_bins = cfg.n_fft // 2 + 1
     ang = 2.0 * np.pi * np.outer(np.arange(cfg.n_fft), np.arange(n_bins)) / cfg.n_fft
     pad_left = (cfg.n_fft - n) // 2  # torch.stft centers a short window
@@ -96,7 +134,25 @@ def _constants(cfg: FrontendConfig):
 
 def num_frames(cfg: FrontendConfig, n_samples):
     """Frame count for a waveform of n_samples (int or int tensor)."""
+    if cfg.framing == "kaldi":
+        return (n_samples + cfg.hop_length // 2) // cfg.hop_length
     return n_samples // cfg.hop_length + 1
+
+
+def _kaldi_frames(x, cfg: FrontendConfig):
+    """snip_edges=False framing -> [B, T, win]: frame t covers samples
+    [t·hop + hop/2 - win/2, ... + win) of the signal extended symmetrically
+    (sample -s-1 on the left, 2n-1-s on the right, period 2n: numpy's
+    ``mode="symmetric"``, which the reference pads with)."""
+    hop, win = cfg.hop_length, cfg.win_length
+    n = x.shape[-1]
+    t_out = (n + hop // 2) // hop
+    left = max(0, (win - hop) // 2 + 1)
+    first = left + hop // 2 - win // 2
+    start = first - left  # first sample of frame 0, relative to x
+    idx = torch.arange(start, start + (t_out - 1) * hop + win, device=x.device) % (2 * n)
+    idx = torch.where(idx >= n, 2 * n - 1 - idx, idx)
+    return x[:, idx].unfold(1, win, hop), t_out
 
 
 def _power_spectrum(x, cfg: FrontendConfig, kernel):
@@ -127,7 +183,7 @@ def log_mel_spectrogram(waveform, lengths, cfg: FrontendConfig):
     Args:
       waveform: [B, N] float tensor (16 kHz mono)
       lengths: [B] int tensor of valid sample counts
-      cfg: FrontendConfig (nemo preset)
+      cfg: FrontendConfig (nemo or kaldi preset)
 
     Returns:
       (features [B, T, n_mels] float32, out_lengths [B] int32). Frames beyond
@@ -144,11 +200,28 @@ def log_mel_spectrogram(waveform, lengths, cfg: FrontendConfig):
     kernel = torch.from_numpy(kernel_np).to(dev)
     mel = torch.from_numpy(mel_np).to(dev)
 
-    if cfg.preemph is not None:
+    per_frame = cfg.preemph is not None and cfg.preemph_mode == "frame"
+    if cfg.preemph is not None and not per_frame:
         x = torch.cat([x[:, :1], x[:, 1:] - cfg.preemph * x[:, :-1]], dim=1)
 
-    power, t_out = _power_spectrum(x, cfg, kernel)
-    feats = torch.log(power @ mel + cfg.log_zero_guard)
+    if cfg.framing == "center" and not (cfg.remove_dc or per_frame):
+        power, t_out = _power_spectrum(x, cfg, kernel)
+    else:
+        if cfg.framing != "kaldi":
+            raise ValueError("per-frame preprocessing is ported with kaldi framing only")
+        frames, t_out = _kaldi_frames(x, cfg)  # [B, T, win]
+        if cfg.remove_dc:
+            frames = frames - frames.mean(dim=-1, keepdim=True)
+        if per_frame:
+            frames = torch.cat([frames[..., :1] * (1.0 - cfg.preemph),
+                                frames[..., 1:] - cfg.preemph * frames[..., :-1]], dim=-1)
+        re, im = (frames @ kernel).chunk(2, dim=-1)
+        power = re * re + im * im
+    feats = power @ mel
+    if cfg.log_zero_guard_type == "add":
+        feats = torch.log(feats + cfg.log_zero_guard)
+    else:
+        feats = torch.log(torch.clamp(feats, min=cfg.log_zero_guard))
 
     lengths = lengths.to(dev)
     out_lengths = torch.where(lengths > 0, num_frames(cfg, lengths), 0).to(torch.int32)

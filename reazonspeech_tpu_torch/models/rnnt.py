@@ -1,12 +1,19 @@
 """RNN-T prediction and joint networks (PyTorch).
 
-Port of ``reazonspeech_tpu.models.rnnt`` for the NeMo convention: an LSTM
-prediction network with ``blank_id == vocab_size`` (the last logit; blank
-and start-of-sequence embed to the zero vector), gates packed (i, f, g, o),
-and the joint ``W_out · act(W_enc·enc + W_pred·pred)``. The dtype chains
-are the reference's: ``_lstm_cell`` sums its gate terms in the compute
-dtype and runs the cell in fp32; the joint runs in the compute dtype and
-returns fp32 logits. The stateless (k2) predictor comes with that flavor.
+Port of ``reazonspeech_tpu.models.rnnt``, both prediction networks:
+
+- ``predictor_kind="lstm"`` (NeMo): an LSTM with ``blank_id == vocab_size``
+  (the last logit; blank and start-of-sequence embed to the zero vector),
+  gates packed (i, f, g, o); its state is ``(h, c)``, each [L, B, H].
+- ``predictor_kind="stateless"`` (k2/icefall): the embeddings of the last
+  ``context_size`` tokens, concatenated, through ``ctx_proj`` and a ReLU;
+  blank is id 0 and has an embedding row; its state is the [B,
+  context_size-1] int32 token context, blank-padded at the start.
+
+The joint is ``W_out · act(W_enc·enc + W_pred·pred)``. The dtype chains are
+the reference's: ``_lstm_cell`` sums its gate terms in the compute dtype
+and runs the cell in fp32; the stateless projection and the joint run in
+the compute dtype, and the joint returns fp32 logits.
 """
 
 import math
@@ -33,7 +40,7 @@ class RNNTConfig:
     joint_hidden: int = 640
     joint_activation: str = "relu"  # relu | tanh | sigmoid
     compute_dtype: str = "bfloat16"
-    predictor_kind: str = "lstm"  # "stateless" is not ported yet
+    predictor_kind: str = "lstm"  # lstm | stateless
     context_size: int = 2
     blank_position: str = "auto"  # auto | first | last
 
@@ -62,18 +69,18 @@ class RNNTConfig:
         return RNNTConfig(**cfg)
 
 
-def _check_supported(cfg: RNNTConfig):
-    if cfg.predictor_kind != "lstm":
-        raise ValueError(f"predictor_kind={cfg.predictor_kind!r} is not ported yet")
-
-
 # ---------------------------------------------------------------------------
 # init
 # ---------------------------------------------------------------------------
 
 
 def init_predictor(gen, cfg: RNNTConfig, device="cpu"):
-    _check_supported(cfg)
+    if cfg.predictor_kind == "stateless":
+        return {
+            "embed": embedding_init(gen, cfg.vocab_size, cfg.pred_hidden, device=device),
+            "ctx_proj": dense_init(gen, cfg.context_size * cfg.pred_hidden, cfg.pred_hidden,
+                                   device=device),
+        }
     s = 1.0 / math.sqrt(cfg.pred_hidden)
     h4 = 4 * cfg.pred_hidden
 
@@ -103,7 +110,11 @@ def init_joint(gen, cfg: RNNTConfig, device="cpu"):
 
 
 def predictor_zero_state(batch, cfg: RNNTConfig, device="cpu"):
-    """(h, c), each [L, B, H] fp32."""
+    """LSTM: (h, c), each [L, B, H] fp32. Stateless: the [B, context_size-1]
+    int32 context of the last tokens, all blank."""
+    if cfg.predictor_kind == "stateless":
+        return torch.full((batch, cfg.context_size - 1), cfg.blank_id, dtype=torch.int32,
+                          device=device)
     shape = (cfg.pred_rnn_layers, batch, cfg.pred_hidden)
     return (torch.zeros(shape, device=device), torch.zeros(shape, device=device))
 
@@ -120,17 +131,25 @@ def _lstm_cell(p, x, h, c):
 
 
 def _embed_tokens(p, tokens, cfg: RNNTConfig):
-    """Blank-last convention: ids ≥ vocab_size (blank / SOS) embed to zeros."""
+    """Blank-last convention: ids ≥ vocab_size (blank / SOS) embed to zeros.
+    Blank-first: every id, blank included, has a row."""
     table = p["embed"]["table"]
+    if cfg.blank_first:
+        return table[tokens.long()]
     emb = table[torch.clamp(tokens, max=cfg.vocab_size - 1).long()]
     return torch.where((tokens >= cfg.vocab_size)[..., None], 0.0, emb)
 
 
 def predictor_step(params, tokens, state, cfg: RNNTConfig):
     """One decode step: tokens [B] int (blank_id for start-of-sequence),
-    state (h, c) each [L, B, H] -> (g [B, H] fp32, new_state)."""
-    _check_supported(cfg)
+    state as :func:`predictor_zero_state` gives it -> (g [B, H] fp32,
+    new_state)."""
     dt = cfg.dtype
+    if cfg.predictor_kind == "stateless":
+        context = torch.cat([state, tokens.to(state.dtype)[:, None]], dim=1)  # [B, ctx]
+        emb = _embed_tokens(params, context, cfg).to(dt)  # [B, ctx, H]
+        g = torch.relu(dense(params["ctx_proj"], emb.reshape(emb.shape[0], -1), dtype=dt))
+        return g.to(torch.float32), context[:, 1:]
     x = _embed_tokens(params, tokens, cfg).to(dt)
     h, c = state
     hs, cs = [], []

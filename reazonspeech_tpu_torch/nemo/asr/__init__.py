@@ -4,7 +4,7 @@ The surface of ``reazonspeech_tpu.nemo.asr`` (same function names,
 dataclasses and output semantics) on the PyTorch/CUDA pipeline.
 """
 
-from reazonspeech_tpu.core.audio import (
+from ...core.audio import (
     audio_from_numpy,
     audio_from_path,
     audio_from_tensor,
@@ -12,7 +12,7 @@ from reazonspeech_tpu.core.audio import (
     norm_audio,
     pad_audio,
 )
-from reazonspeech_tpu.core.interface import (
+from ...core.interface import (
     AudioData,
     Segment,
     Subword,

@@ -30,7 +30,7 @@ Flag/flow parity: pkg/nemo-asr/src/cli.py.
 
 import sys
 
-from reazonspeech_tpu.core.cli import run_transcribe_cli
+from ...core.cli import run_transcribe_cli
 from .transcribe import load_model, transcribe
 
 

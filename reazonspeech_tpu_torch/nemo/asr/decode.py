@@ -1,7 +1,7 @@
 """Hypothesis post-processing: timestamps and segmentation heuristics.
 
-A straight copy of ``reazonspeech_tpu.nemo.asr.decode`` (numpy only), which
-the port cannot import: that package's ``__init__`` imports JAX.
+A straight copy of ``reazonspeech_tpu.nemo.asr.decode`` (numpy only): the
+port imports nothing of the JAX package.
 
 Behavioral parity port of the reference's decode layer
 (pkg/nemo-asr/src/decode.py:1-66): identical constants, identical timestamp
@@ -13,7 +13,7 @@ from dataclasses import dataclass
 
 import numpy as np
 
-from reazonspeech_tpu.core.interface import Segment, Subword, TranscribeResult
+from ...core.interface import Segment, Subword, TranscribeResult
 
 __all__ = [
     "PAD_SECONDS",

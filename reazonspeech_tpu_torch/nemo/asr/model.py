@@ -20,13 +20,13 @@ from typing import Optional
 import numpy as np
 import torch
 
-from reazonspeech_tpu.core.hub import CheckpointNotFoundError, resolve_converted
-from reazonspeech_tpu.core.tokenizer import CharTokenizer, SentencePieceTokenizer
-
 from ...convert.from_jax import params_from_numpy
 from ...convert.store import load_param_tree
+from ...core.hub import CheckpointNotFoundError, resolve_converted
+from ...core.tokenizer import CharTokenizer, SentencePieceTokenizer
 from ...decoding.rnnt_beam import BeamDecodeConfig, rnnt_beam_decode
 from ...decoding.rnnt_greedy import GreedyDecodeConfig, rnnt_greedy_decode
+from ...device import resolve_device, set_fp32_matmul_policy
 from ...frontend.features import FrontendConfig, log_mel_spectrogram, nemo_frontend_config
 from ...models.fastconformer import FastConformerConfig, fastconformer_encode, init_fastconformer
 from ...models.rnnt import RNNTConfig, init_joint, init_predictor
@@ -113,15 +113,6 @@ def init_params(seed: int, enc_cfg: FastConformerConfig, rnnt_cfg: RNNTConfig,
     }
 
 
-def _resolve_device(device):
-    if device is None:
-        return torch.device("cuda" if torch.cuda.is_available() else "cpu")
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"load_model(device={str(device)!r}): no CUDA device is available")
-    return device
-
-
 def _cuda_serving_config(enc_cfg: FastConformerConfig) -> FastConformerConfig:
     """What the port serves on a GPU, as the reference serves on its TPU
     (``_tpu_serving_overrides``): every encoder kernel (attention, conv
@@ -144,8 +135,8 @@ def load_model(device=None, *, checkpoint: Optional[str] = None,
                rnnt_cfg: Optional[RNNTConfig] = None, decode_cfg=None,
                decoding: Optional[str] = None, beam_size: Optional[int] = None,
                tokenizer=None, seed: int = 0) -> NemoTorchModel:
-    """Load the nemo-v2 flavor model onto ``device`` (default: CUDA when
-    available, else CPU; an explicit CUDA device without a GPU raises).
+    """Load the nemo-v2 flavor model onto ``device`` (default CUDA, which
+    raises without a GPU; pass ``device="cpu"`` for the CPU).
 
     Weights: ``checkpoint=`` path > $REAZONSPEECH_TPU_NEMO_CHECKPOINT > the
     converted-tree cache shared with the JAX package. With nothing found this
@@ -156,19 +147,16 @@ def load_model(device=None, *, checkpoint: Optional[str] = None,
     "greedy". On CUDA, configs not passed explicitly default to the kernel
     serving configuration (see module notes).
     """
-    device = _resolve_device(device)
+    device = resolve_device(device)
     on_cuda = device.type == "cuda"
     if on_cuda:
-        # bf16 GEMMs accumulate in fp32; fp32 GEMMs and convs stay fp32
-        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
+        set_fp32_matmul_policy()
     checkpoint = checkpoint or os.environ.get(DEFAULT_CHECKPOINT_ENV)
     meta, params = {}, None
     if checkpoint != "random":
         if checkpoint is None:
             checkpoint = resolve_converted(HF_REPO_ID, "model", _no_converter,
-                                           require=("*.nemo",), allow_network=False)
+                                           require=("*.nemo",))
         tree, meta = load_param_tree(checkpoint)
         params = params_from_numpy(tree, device)
         if tokenizer is None and meta.get("tokenizer_model"):

@@ -8,8 +8,8 @@ is the PyTorch one in model.py.
 
 import numpy as np
 
-from reazonspeech_tpu.core.audio import norm_audio, pad_audio
-from reazonspeech_tpu.core.interface import TranscribeConfig, TranscribeResult
+from ...core.audio import norm_audio, pad_audio
+from ...core.interface import TranscribeConfig, TranscribeResult
 from .decode import PAD_SECONDS, Hypothesis, decode_hypothesis
 from .model import BUCKET_SAMPLES, NemoTorchModel, load_model
 

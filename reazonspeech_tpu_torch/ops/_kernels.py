@@ -61,6 +61,9 @@ _SIGNATURES = {
     "rs_add_ln": [_P] * 6 + [_I] * 3 + [_F, _F, _P],
     # logits, lp_blank, top_lp, top_tok, R, V, m, blank, is_bf16, stream
     "rs_topm_logsoftmax": [_P] * 4 + [_I] * 5 + [_P],
+    # q, k, qp, pos, v, lengths, out, G, T, qd, pd, dv, heads, scale, stream
+    "rs_shared_rel_attention": [_P] * 7 + [_I] * 6 + [_F, _P],
+    "rs_shared_rel_attention_blockwise": [_P] * 7 + [_I] * 6 + [_F, _P],
 }
 KERNELS = tuple(name.removeprefix("rs_") for name in _SIGNATURES)
 # kernel name -> launches since the last reset (ops.reset_launch_counts)

@@ -14,7 +14,9 @@ from reazonspeech_tpu_torch.ops import (
     add_ln, add_ln_plain, fused_conv_module, fused_conv_module_plain, launch_counts, ln_dense,
     ln_dense_add, ln_dense_add_plain, ln_dense_plain, relpos_attention_fused,
     relpos_attention_fused_packed, relpos_attention_fused_packed_plain,
-    relpos_attention_fused_plain, reset_launch_counts, topm_logsoftmax, topm_logsoftmax_plain,
+    relpos_attention_fused_plain, reset_launch_counts, shared_rel_attention,
+    shared_rel_attention_blockwise, shared_rel_attention_blockwise_plain,
+    shared_rel_attention_plain, topm_logsoftmax, topm_logsoftmax_plain,
 )
 
 pytestmark = pytest.mark.cuda
@@ -230,3 +232,75 @@ def test_tiny_model_runs_the_kernels(dev, lnd_impl, kernels):
     assert isinstance(ret.text, str)
     counts = launch_counts()
     assert all(counts[k] > 0 for k in kernels), counts
+
+
+# (g, t, qd, dv, heads): the k2 main path's per-head and nonlin applications
+# (stack 0 and 3 of the 32 s bucket), an odd small shape, and the tiny
+# configuration's qd=8 (zero-padded to 32 inside the kernel)
+SHARED_SHAPES = [(16, 1596, 32, 12, 4), (4, 200, 32, 576, 1), (6, 77, 32, 4, 3),
+                 (4, 130, 8, 144, 2)]
+
+
+def _shared_inputs(dev, g, t, qd, dv, heads, seed):
+    gen = torch.Generator().manual_seed(seed)
+    lengths = [t, 1] + [max(1, t - 37 * i) for i in range(2, g)]
+    return (_rand(gen, g, t, qd, scale=0.5), _rand(gen, g, t, qd, scale=0.5),
+            _rand(gen, g, t, 4), _rand(gen, heads, 2 * t - 1, 4), _rand(gen, g, t, dv),
+            torch.tensor(lengths, dtype=torch.int32, device=dev))
+
+
+@pytest.mark.parametrize("g,t,qd,dv,heads", SHARED_SHAPES)
+def test_shared_attention_kernel_matches_plain(dev, g, t, qd, dv, heads):
+    """fp32 out: the kernel and the twin round the normalised probabilities
+    to bf16 at the same points; an fp32 sum order or expf ulp can move one
+    probability by a bf16 ulp: 2e-3 abs at |v| <= ~4."""
+    args = _shared_inputs(dev, g, t, qd, dv, heads, seed=t + dv)
+    got = shared_rel_attention(*args, heads=heads)
+    want = shared_rel_attention_plain(*args, heads=heads)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32 and got.shape == (g, t, dv)
+    assert _max_err(got, want) <= 2e-3
+
+
+@pytest.mark.parametrize("g,t,qd,dv,heads", SHARED_SHAPES + [(4, 3196, 32, 12, 4)])
+def test_shared_attention_blockwise_kernel_matches_plain(dev, g, t, qd, dv, heads):
+    """The streamed entry against the twin's block loop at the kernel's
+    64-key tiles (the same online-softmax rounding points): 2e-3 abs."""
+    args = _shared_inputs(dev, g, t, qd, dv, heads, seed=t * dv)
+    got = shared_rel_attention_blockwise(*args, heads=heads)
+    want = shared_rel_attention_blockwise_plain(*args, heads=heads, block=64)
+    torch.cuda.synchronize()
+    assert _max_err(got, want) <= 2e-3
+
+
+def test_shared_attention_wrong_inputs_raise(dev):
+    args = list(_shared_inputs(dev, 2, 33, 32, 12, 1, seed=0))
+    with pytest.raises(TypeError):
+        shared_rel_attention(*([args[0].float()] + args[1:]))  # fp32 q
+    with pytest.raises(ValueError):
+        shared_rel_attention(*(args[:3] + [args[3][:, :10]] + args[4:]))  # short pos table
+    with pytest.raises(ValueError):
+        shared_rel_attention_blockwise(*(args[:4] + [args[4][:, :, :5]] + args[5:]))  # not contiguous
+    wide = list(_shared_inputs(dev, 2, 33, 64, 12, 1, seed=0))
+    with pytest.raises(ValueError):
+        shared_rel_attention(*wide)  # qd=64: the kernel takes qd <= 32
+
+
+def test_tiny_k2_model_runs_both_entries(dev, monkeypatch):
+    """The k2 path end to end on the card at a tiny width: the single-pass
+    entry, and the streamed one with the dispatch threshold lowered."""
+    from reazonspeech_tpu_torch.k2.asr import audio_from_numpy, transcribe
+    from reazonspeech_tpu_torch.k2.asr.model import ZipformerConfig, load_model_container
+    from reazonspeech_tpu_torch.models import zipformer as zf
+
+    model = load_model_container(checkpoint="random", device="cuda",
+                                 enc_cfg=ZipformerConfig.tiny(attn_impl="pallas"))
+    wav = (np.random.default_rng(0).standard_normal(48000) * 0.1).astype(np.float32)
+    dispatch = zf._shared_attn_kernel
+    # stack 0 (T=196 of the 4 s bucket) past the threshold, the others not
+    monkeypatch.setattr(zf, "_shared_attn_kernel", lambda t: dispatch(t * 11))
+    reset_launch_counts()
+    ret = transcribe(model, audio_from_numpy(wav, 16000))
+    assert isinstance(ret.text, str)
+    counts = launch_counts()
+    assert counts["shared_rel_attention"] > 0 and counts["shared_rel_attention_blockwise"] > 0

@@ -169,6 +169,9 @@ def test_unported_settings_raise(setup):
                 dict(conv_norm="layer_norm")):
         with pytest.raises(ValueError):
             tfc.fastconformer_encode(p, feats, lens, replace(tenc, **bad))
+    # the stateless predictor is ported (k2); greedy blank-run skipping is not
+    from reazonspeech_tpu_torch.decoding import rnnt_greedy as tgreedy
+
     with pytest.raises(ValueError):
-        trnnt.predictor_step({}, torch.zeros(1, dtype=torch.int32), None,
-                             replace(tr, predictor_kind="stateless"))
+        tgreedy.rnnt_greedy_decode({}, {}, torch.zeros(1, 4, tr.enc_dim), torch.tensor([4]), tr,
+                                   tgreedy.GreedyDecodeConfig(frame_window=4))

@@ -42,6 +42,11 @@ def test_mel_filterbank_is_the_reference():
 
 
 def test_unported_presets_raise():
-    with pytest.raises(ValueError):
-        log_mel_spectrogram(torch.zeros(1, 1600), torch.tensor([1600]),
-                            nemo_frontend_config(framing="kaldi"))
+    """The nemo and kaldi presets are ported; the espnet preset's periodic
+    window, other powers and normalizations, and per-frame preprocessing on
+    centred frames raise."""
+    for overrides in (dict(window="hann_periodic"), dict(mag_power=1.0),
+                      dict(normalize="per_utterance"), dict(remove_dc=True)):
+        with pytest.raises(ValueError):
+            log_mel_spectrogram(torch.zeros(1, 1600), torch.tensor([1600]),
+                                nemo_frontend_config(**overrides))

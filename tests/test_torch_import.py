@@ -1,5 +1,7 @@
-"""The PyTorch port stands alone: no JAX at any import depth, and of the
-JAX package only the jax-free ``reazonspeech_tpu.core``."""
+"""The PyTorch port stands alone: after importing every module of
+``reazonspeech_tpu_torch``, neither JAX nor any module of the JAX package
+(``reazonspeech_tpu`` itself or ``reazonspeech_tpu.*``, ``core`` included:
+the port keeps its own copy) is in ``sys.modules``."""
 
 import os
 import subprocess
@@ -14,8 +16,8 @@ names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")
 for name in names:
     importlib.import_module(name)
 leaked = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib")))
-jax_pkg = sorted(m for m in sys.modules if m.startswith("reazonspeech_tpu.")
-                 and not m.startswith("reazonspeech_tpu.core"))
+jax_pkg = sorted(m for m in sys.modules
+                 if m == "reazonspeech_tpu" or m.startswith("reazonspeech_tpu."))
 print(len(names), ",".join(leaked + jax_pkg))
 """
 
