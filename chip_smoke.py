@@ -16,7 +16,12 @@ Phases, each of which fails the run (nonzero exit, no result line):
    4 x 32 s bucket (B=4, T=401, D=1024; the lnd_impl="xla" pair also at an
    unaligned T=376), the ALSD top-m, and the Zipformer shared attention at
    the k2 shapes (stack 0 and stack 3 of a 4 x 32 s bucket, the nonlin
-   applications, and the streamed entry at the 64 s bucket's T=3196);
+   applications, and the streamed entry at the 64 s bucket's T=3196); then
+   the espnet shapes (12 blocks, d=512, 8 heads of dh=64): the [B, H, T, dh]
+   attention's single-pass entry at the 20 s window's T=549 (B=1 and B=4)
+   and its streamed entry at a 45 s input's T=1149, the layer-norm conv
+   module at T=549 with and without its in-kernel pre-LN, the packed route's
+   kernels at the find_blank pass's T=499, and the top-m at R=80, V=2,182;
 4. nemo path: load_model(device="cuda", checkpoint="random") in its GPU
    serving configuration (lnd_impl="pallas": every encoder kernel) at the
    full xlarge width and depth (24 blocks, d=1024), transcribe_batch of
@@ -36,9 +41,23 @@ Phases, each of which fails the run (nonzero exit, no result line):
    its CUDA-event ms and the greedy decode's, and the device busy share of
    one profiled transcribe_batch); then, on a short input, the encoder
    against the plain twins and against attn_impl="xla";
+6. espnet path: espnet.asr.load_model(device="cuda", checkpoint="random") at
+   the full espnet_encoder_config width and depth in its GPU serving
+   configuration (every encoder kernel, bf16, fp32 residual) with Graves
+   beam 20 on the top-m kernel, the joint's blank bias raised so that the
+   search ends frames by ESPnet's test as a trained model does: transcribe
+   of 45 s (windows at T=549, 549 and a short one, the find_blank passes on
+   the packed route at T=499), decode_batch of four 20 s windows padded as
+   transcribe pads them (B=4, T=549) and decode_single of 45 s (T=1149: the
+   streamed entry); the mean pops per frame and the saturated count; the
+   encoder's device busy ms and ops; then the encoder against the plain
+   twins and against the xla impls (single-pass and streamed route), Graves
+   with the top-m kernel against its twin on 100 frames, the CTC Viterbi on
+   the card against the CPU's, and the lnd_impl="xla" configuration at 4
+   blocks through ctc_probs (the caller-side LayerNorm conv variant);
    Launch counts are reset before and read after each path, and every
    kernel of each path must have launched;
-6. the kernels' JSON line (each kernel's time, its plain twin's, the bound
+7. the kernels' JSON line (each kernel's time, its plain twin's, the bound
    of its work on this card, the launches on its path), then the last line
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
@@ -66,6 +85,10 @@ REPLACES = {
     "fused_conv_module_ln": "reazonspeech_tpu/ops/conformer_conv.py:98",
     "shared_rel_attention": "reazonspeech_tpu/ops/zipformer_attention.py:69",
     "shared_rel_attention_blockwise": "reazonspeech_tpu/ops/zipformer_attention.py:174",
+    "relpos_attention": "reazonspeech_tpu/ops/relpos_attention.py:76",
+    "relpos_attention_blockwise": "reazonspeech_tpu/ops/relpos_attention.py:199",
+    "fused_conv_module_layer": "reazonspeech_tpu/ops/conformer_conv.py:98",
+    "fused_conv_module_ln_layer": "reazonspeech_tpu/ops/conformer_conv.py:98",
 }
 SOURCES = {
     "relpos_attention_fused": "reazonspeech_tpu_torch/csrc/relpos_attention.cu",
@@ -78,12 +101,23 @@ SOURCES = {
     "fused_conv_module_ln": "reazonspeech_tpu_torch/csrc/conformer_conv.cu",
     "shared_rel_attention": "reazonspeech_tpu_torch/csrc/zipformer_attention.cu",
     "shared_rel_attention_blockwise": "reazonspeech_tpu_torch/csrc/zipformer_attention.cu",
+    "relpos_attention": "reazonspeech_tpu_torch/csrc/relpos_attention.cu",
+    "relpos_attention_blockwise": "reazonspeech_tpu_torch/csrc/relpos_attention.cu",
+    "fused_conv_module_layer": "reazonspeech_tpu_torch/csrc/conformer_conv.cu",
+    "fused_conv_module_ln_layer": "reazonspeech_tpu_torch/csrc/conformer_conv.cu",
 }
 # the kernels each configuration's encoder and decoder launch
 SERVING_KERNELS = ("ln_dense", "ln_dense_add", "relpos_attention_fused_packed",
                    "fused_conv_module_ln", "add_ln", "topm_logsoftmax")
 EARLIER_KERNELS = ("relpos_attention_fused", "fused_conv_module", "topm_logsoftmax")
 K2_KERNELS = ("shared_rel_attention", "shared_rel_attention_blockwise")
+ESPNET_KERNELS = ("ln_dense", "ln_dense_add", "relpos_attention_fused_packed", "add_ln",
+                  "relpos_attention", "relpos_attention_blockwise", "fused_conv_module_ln_layer",
+                  "topm_logsoftmax")
+ESPNET_XLA_KERNELS = ("relpos_attention", "fused_conv_module_layer")
+# the kernels whose JSON rows take their launches from the espnet runs
+ESPNET_ROWS = ("relpos_attention", "relpos_attention_blockwise", "fused_conv_module_ln_layer",
+               "fused_conv_module_layer")
 # published peaks of one H100 SXM (dense, from NVIDIA's H100 datasheet):
 # FLOP/s by operation type and HBM bytes/s. bound_ms is the larger of
 # the bytes a call must move (each input read once, each output written
@@ -94,8 +128,11 @@ PEAK_FLOPS = {"bf16": 989e12, "fp32": 67e12}
 HBM_BYTES = 3.35e12
 
 
+T0 = time.perf_counter()
+
+
 def log(msg):
-    print(f"[chip_smoke] {msg}", flush=True)
+    print(f"[chip_smoke {time.perf_counter() - T0:7.1f} s] {msg}", flush=True)
 
 
 def check(cond, msg):
@@ -198,6 +235,11 @@ def flops_relpos(args, out):  # q·kᵀ, the (q+v)·pos band and p·v, every hea
     return {"bf16": 2.0 * t * _valid_keys(args[-2], t) * d * 3}
 
 
+def flops_relpos_bhtd(args, out):  # the same three products on [B, H, T, dh]
+    _, h, t, dh = out.shape
+    return {"bf16": 2.0 * t * _valid_keys(args[-1], t) * h * dh * 3}
+
+
 def flops_conv(args, out):  # GLU and output products, depthwise taps
     b, t, d = out.shape
     return {"bf16": 2.0 * b * t * d * 3 * d, "fp32": 2.0 * b * t * d * args[4].shape[0]}
@@ -269,7 +311,8 @@ def kernel_checks(dev):
     torch.cuda.synchronize()
     check(torch.equal(got[2], want[2]), "topm_logsoftmax: tie order differs from the plain twin")
     log("topm_logsoftmax integer-tie case: indices equal")
-    return rows + bucket_kernel_checks(rand, dev) + shared_attention_checks(rand, dev)
+    return (rows + bucket_kernel_checks(rand, dev) + shared_attention_checks(rand, dev)
+            + espnet_kernel_checks(rand, dev))
 
 
 def bf16_tol(want):
@@ -399,6 +442,98 @@ def shared_attention_checks(rand, dev):
     return rows
 
 
+def espnet_kernel_checks(rand, dev):
+    """The kernels at the espnet serving shapes (espnet_encoder_config: 8
+    heads of dh=64, D=512, conv kernel 31; 2,182 tokens, beam 20): the
+    [B, H, T, dh] attention at the 20 s window padded as transcribe pads it
+    (22 s bucket, T=549; B=1 for transcribe, B=4 for a batch of windows) and
+    at a 45 s input (46 s bucket, T=1149, the streamed entry); the
+    layer-norm conv module at T=549 with the LayerNorm inside (the serving
+    configuration) and by the caller; the packed route's kernels at the
+    find_blank pass's T=499 (their dh=64 instantiations); the top-m over a
+    batch of four's 80 pops' rows."""
+    import torch
+
+    from reazonspeech_tpu_torch import ops
+    from reazonspeech_tpu_torch.ops.relpos_attention import (
+        relpos_attention, relpos_attention_blockwise, relpos_attention_blockwise_plain,
+        relpos_attention_plain,
+    )
+
+    f32, bf16, rows = torch.float32, torch.bfloat16, []
+    h, dh, d, k = 8, 64, 512, 31
+
+    def bhtd(b, t, lens):
+        qkv = tuple(rand(b, h, t, dh, scale=0.5) for _ in range(4))
+        return (*qkv, rand(2 * t - 1, h, dh, scale=0.5),
+                torch.tensor(lens, dtype=torch.int32, device=dev))
+
+    # fp32 out: kernel and twin round the probabilities to bf16 at the same
+    # points (the single-pass entry after normalising, the streamed one per
+    # 64-key tile, its twin given block=64); an fp32 sum order or an expf ulp
+    # can move one across a bf16 boundary: one ulp times |v| <= ~2 on a few keys
+    for label, b, lens in (("B=1, T=549", 1, [549]), ("B=4, T=549", 4, [549, 549, 520, 301])):
+        row = _compare("relpos_attention", relpos_attention, relpos_attention_plain,
+                       bhtd(b, 549, lens), SHARED_ATOL, iters=20, label=label,
+                       flops=flops_relpos_bhtd)
+        rows += [row] if b == 1 else []
+    rows.append(_compare("relpos_attention_blockwise", relpos_attention_blockwise,
+                         relpos_attention_blockwise_plain, bhtd(1, 1149, [1149]), SHARED_ATOL,
+                         iters=10, label="B=1, T=1149", flops=flops_relpos_bhtd,
+                         plain_kwargs=dict(block=64)))
+
+    t = 549
+    lengths = torch.tensor([t], dtype=torch.int32, device=dev)
+    x = rand(1, t, d, dtype=f32) + 0.5  # the fp32 residual stream
+    g, beta = 1.0 + rand(d, scale=0.1, dtype=f32), rand(d, scale=0.1, dtype=f32)
+    weights = (rand(d, 2 * d, scale=d ** -0.5, dtype=f32), rand(2 * d, scale=0.1, dtype=f32),
+               rand(k, 1, d, scale=k ** -0.5, dtype=f32), rand(d, scale=0.1, dtype=f32),
+               1.0 + rand(d, scale=0.1, dtype=f32), rand(d, scale=0.1, dtype=f32),
+               rand(d, d, scale=d ** -0.5, dtype=f32), rand(d, scale=0.1, dtype=f32))
+    # bf16 out, fp32 inside: as the folded forms, a few bf16 ulps
+    rows.append(_compare("fused_conv_module_ln_layer", ops.fused_conv_module,
+                         ops.fused_conv_module_plain, (x, lengths) + weights, 0.03, iters=20,
+                         kwargs=dict(norm="layer", ln_scale=g, ln_bias=beta, compute_dtype=bf16),
+                         label="T=549, D=512, K=31", flops=flops_conv))
+    from reazonspeech_tpu_torch.ops.ln_dense import layer_norm_fp32
+
+    xn = layer_norm_fp32(x, g, beta).to(bf16)
+    rows.append(_compare("fused_conv_module_layer", ops.fused_conv_module,
+                         ops.fused_conv_module_plain, (xn, lengths) + weights, 0.03, iters=20,
+                         kwargs=dict(norm="layer"), label="T=549, D=512, K=31",
+                         flops=flops_conv))
+
+    # the packed route at T=499 (one 20 s find_blank pass): tolerances as at
+    # the nemo bucket
+    t = 499
+    lengths = torch.tensor([t], dtype=torch.int32, device=dev)
+    x = rand(1, t, d, dtype=f32) + 0.5
+    w_ffn, c_ffn = rand(d, 4 * d, scale=0.5 * d ** -0.5), rand(4 * d, scale=0.1, dtype=f32)
+    _compare("ln_dense", ops.ln_dense, ops.ln_dense_plain, (x, g, beta, w_ffn, c_ffn), "bf16",
+             iters=20, kwargs=dict(activation="swish"), label="espnet FFN-in, T=499",
+             flops=flops_ln_dense)
+    w_qkv = tuple(rand(d, d, scale=0.5 * d ** -0.5) for _ in range(3))
+    c_qkv = tuple(rand(d, scale=0.1, dtype=f32) for _ in range(3))
+    delta = rand(1, t, d)
+    _compare("ln_dense_add", ops.ln_dense_add, ops.ln_dense_add_plain,
+             (x, delta, g, beta, w_qkv, c_qkv), ("bf16", 1e-5), iters=20,
+             kwargs=dict(scale=0.5), label="espnet q/k/v, T=499",
+             flops=lambda a, o: flops_ln_dense(a, o, w_at=4))
+    _compare("add_ln", ops.add_ln, ops.add_ln_plain, (x, delta, lengths, g, beta), 1e-4,
+             iters=20, kwargs=dict(scale=0.5), label="espnet, T=499", flops=flops_add_ln)
+    qkv = rand(1, t, 3 * d, scale=0.5)
+    pos = rand(2 * t - 1, h, dh, scale=0.5)
+    bu, bv = rand(h, dh, scale=0.1, dtype=f32), rand(h, dh, scale=0.1, dtype=f32)
+    _compare("relpos_attention_fused_packed", ops.relpos_attention_fused_packed,
+             ops.relpos_attention_fused_packed_plain, (qkv, pos, bu, bv, lengths, h), 0.03,
+             iters=20, label="espnet, dh=64, T=499", flops=flops_relpos)
+    logits = rand(80, 2182, scale=3.0, dtype=f32)
+    _compare("topm_logsoftmax", ops.topm_logsoftmax, ops.topm_logsoftmax_plain,
+             (logits, 20, 0), 1e-4, iters=100, label="Graves, R=80, m=20, V=2182",
+             flops=flops_topm)
+    return rows
+
+
 def _compare(name, kernel, plain, args, atol, iters, *, flops, kwargs=None, label=None,
              plain_kwargs=None):
     """Kernel against plain twin on the same inputs, then both timed.
@@ -451,17 +586,24 @@ def _compare(name, kernel, plain, args, atol, iters, *, flops, kwargs=None, labe
 def plain_twins():
     """Run the same path with every kernel wrapper's plain twin in its place."""
     from reazonspeech_tpu_torch import ops
-    from reazonspeech_tpu_torch.decoding import rnnt_beam
+    from reazonspeech_tpu_torch.decoding import rnnt_beam, transducer_graves
     from reazonspeech_tpu_torch.models import fastconformer as fc
     from reazonspeech_tpu_torch.models import zipformer as zf
+    from reazonspeech_tpu_torch.ops.relpos_attention import (
+        relpos_attention_blockwise_plain, relpos_attention_plain,
+    )
 
+    plains = {"relpos_attention": relpos_attention_plain,
+              "relpos_attention_blockwise": relpos_attention_blockwise_plain}
     targets = [(fc, name) for name in (
         "ln_dense", "ln_dense_add", "add_ln", "relpos_attention_fused",
-        "relpos_attention_fused_packed", "fused_conv_module")] + [(rnnt_beam, "topm_logsoftmax")]
+        "relpos_attention_fused_packed", "fused_conv_module", "relpos_attention",
+        "relpos_attention_blockwise")]
+    targets += [(rnnt_beam, "topm_logsoftmax"), (transducer_graves, "topm_logsoftmax")]
     targets += [(zf, name) for name in K2_KERNELS]
     saved = [(mod, name, getattr(mod, name)) for mod, name in targets]
     for mod, name in targets:
-        setattr(mod, name, getattr(ops, name + "_plain"))
+        setattr(mod, name, plains[name] if name in plains else getattr(ops, name + "_plain"))
     try:
         yield
     finally:
@@ -751,6 +893,262 @@ def k2_reference_check(model):
         check(rel <= 5e-2, f"k2 encoder {what}: relative L2 {rel}")
 
 
+# the espnet joint's blank logit raised on the random weights so that
+# frames end by ESPnet's test as a trained model's do: the random joint's
+# 2,182 logits spread little, so blank's log-prob must be within ~0.01 of 0
+# for a kept hypothesis to outscore the dense cluster of pending ones
+# (+8, lp_blank ~ -0.6, took 77 pops a frame against the cap of 128)
+ESPNET_BLANK_BIAS = 12.0
+
+
+def check_espnet_result(r, duration):
+    """Text, and segments that tile it, in order, within the input."""
+    check(isinstance(r.text, str), "espnet: text is not a string")
+    check("".join(s.text for s in r.segments) == r.text, "espnet: segments do not tile the text")
+    ends = [(s.start_seconds, s.end_seconds) for s in r.segments]
+    check(all(0 <= a <= b <= duration + 1e-6 for a, b in ends), f"espnet: segments {ends[:6]}")
+
+
+class PopCounter:
+    """Wraps the espnet model's Graves decode with its stats form: pops,
+    frames and saturated lanes summed over the calls (device tensors, read
+    at the end), the host's issued pops and waits on a done flag."""
+
+    def __init__(self, module):
+        from reazonspeech_tpu_torch.decoding import transducer_graves as tg
+
+        self.module, self.decode, self.stats = module, module.graves_beam_decode, tg
+        self.ptot, self.frames, self.saturated, self.host = [], [], [], []
+
+    def __call__(self, pp, jp, enc, elens, rnnt_cfg, cfg):
+        *out, _, ptot, host = self.stats.graves_beam_decode_stats(pp, jp, enc, elens, rnnt_cfg,
+                                                                  cfg)
+        self.ptot.append(ptot.sum())
+        self.frames.append(elens.sum())
+        self.saturated.append(out[4].sum())
+        self.host.append(host)
+        return tuple(out)
+
+    def __enter__(self):
+        self.module.graves_beam_decode = self
+        return self
+
+    def __exit__(self, *exc):
+        self.module.graves_beam_decode = self.decode
+
+    def summary(self):
+        lane_frames = sum(int(x) for x in self.frames)
+        steps = sum(h["frames"] for h in self.host)
+        return {"pops_per_lane_frame": sum(int(x) for x in self.ptot) / lane_frames,
+                "saturated_lanes": sum(int(x) for x in self.saturated),
+                "issued_per_frame": sum(h["pops_issued"] for h in self.host) / steps,
+                "waits_per_frame": sum(h["waits"] for h in self.host) / steps,
+                "frames": steps}
+
+
+def espnet_path(name):
+    """The espnet flavor at espnet_encoder_config's full width and depth in
+    its GPU serving configuration, Graves beam 20: transcribe of 45 s,
+    decode_batch of four 20 s windows (B=4, T=549) and decode_single of 45 s
+    (T=1149)."""
+    from dataclasses import replace
+
+    import torch
+
+    from reazonspeech_tpu_torch import ops
+    from reazonspeech_tpu_torch.decoding.transducer_graves import GravesBeamConfig
+    from reazonspeech_tpu_torch.espnet import asr
+    from reazonspeech_tpu_torch.espnet.asr import model as espnet_model
+    from reazonspeech_tpu_torch.espnet.asr.transcribe import PADDING
+    from reazonspeech_tpu_torch.models.conformer import espnet_encoder_config
+
+    t0 = time.perf_counter()
+    model = asr.load_model(device="cuda", checkpoint="random")
+    torch.cuda.synchronize()
+    cfg = model.enc_cfg
+    log(f"espnet load_model: {time.perf_counter() - t0:.1f} s; {cfg.num_layers} blocks, "
+        f"d={cfg.d_model}, heads={cfg.num_heads}, conv kernel {cfg.conv_kernel}, "
+        f"{cfg.subsampling_style} x{cfg.subsampling_factor}, conv_norm={cfg.conv_norm}, "
+        f"attn={cfg.attn_impl}, conv={cfg.conv_impl}, lnd={cfg.lnd_impl}, "
+        f"{cfg.compute_dtype}/{cfg.residual_dtype}, vocab {len(model.token_list)}, "
+        f"decode={model.decode_cfg}")
+    serving = replace(espnet_encoder_config(), attn_impl="pallas", conv_impl="pallas",
+                      lnd_impl="pallas", compute_dtype="bfloat16", residual_dtype="float32")
+    check(cfg == serving, "espnet load_model on CUDA is not the full-width serving configuration")
+    check(model.decode_cfg == GravesBeamConfig(beam_size=20, topk_impl="pallas"),
+          "espnet: not Graves beam 20 on the top-m kernel")
+    model.params["joint"]["out"]["b"][0] += ESPNET_BLANK_BIAS
+
+    long_form = asr.audio_from_numpy(speech_like(45.0, seed=50), SR)
+    window = int(21.5 * SR)  # a 20 s window padded as transcribe pads it
+    buf = np.zeros((4, 22 * SR), np.float32)
+    for i in range(4):
+        buf[i, :window] = np.pad(speech_like(20.0, seed=51 + i), PADDING)
+    lens = np.full(4, window, np.int32)
+    single = speech_like(45.0, seed=60)
+    model.decode_single(speech_like(2.0, seed=49))  # warm-up: library handles, allocator
+    torch.cuda.synchronize()
+
+    ops.reset_launch_counts()
+    with PopCounter(espnet_model) as pops:
+        t0 = time.perf_counter()
+        res = asr.transcribe(model, long_form, asr.TranscribeConfig(verbose=False))
+        t1 = time.perf_counter()
+        batch = model.decode_batch(buf, lens)
+        t2 = time.perf_counter()
+        tokens, frames = model.decode_single(single)
+        t3 = time.perf_counter()
+    counts = ops.launch_counts()
+    log(f"espnet path: launch counts {counts}")
+    check(all(counts[k] > 0 for k in ESPNET_KERNELS),
+          f"an espnet kernel was not launched: {counts}")
+    check_espnet_result(res, 45.0)
+    # 21.5 s of valid samples in the 22 s bucket: 537 valid of T=549 frames
+    check(batch[3].tolist() == [537] * 4, f"espnet decode_batch: encoder lengths {batch[3]}")
+    check(frames == sorted(frames) and all(0 <= f < 1149 for f in frames),
+          "espnet decode_single: emission frames out of order or range")
+    log(f"espnet transcribe 45 s: {t1 - t0:.3f} s wall, {45.0 / (t1 - t0):.2f} audio-s/s "
+        f"on {name}; {len(res.text)} characters, {len(res.segments)} segments")
+    log(f"espnet decode_batch 4 x 20 s windows (B=4, T=549): {t2 - t1:.3f} s wall, "
+        f"{80.0 / (t2 - t1):.2f} audio-s/s; tokens {batch[2].tolist()}")
+    log(f"espnet decode_single 45 s (T=1149): {t3 - t2:.3f} s wall, {45.0 / (t3 - t2):.2f} "
+        f"audio-s/s; {len(tokens)} tokens")
+    from reazonspeech_tpu_torch.espnet.asr.ctc import find_blank
+
+    blank = find_blank(model, long_form.waveform[:20 * SR])
+    log(f"espnet first window: longest CTC blank run {tuple(blank)} of {20 * SR} samples "
+        f"(the sentinel ({20 * SR}, {20 * SR}) when none passes 0.98: a cut at 20 s)")
+    stats = pops.summary()
+    log(f"espnet Graves beam {model.decode_cfg.beam_size}: "
+        f"{stats['pops_per_lane_frame']:.2f} pops per lane-frame, "
+        f"{stats['issued_per_frame']:.2f} pops issued per frame step, "
+        f"{stats['waits_per_frame']:.3f} host waits on a done flag per frame step "
+        f"({stats['frames']} frame steps); saturated lanes {stats['saturated_lanes']}")
+    espnet_profile(model, buf, lens)
+    espnet_reference_check(model, buf, lens, single)
+    out = {k: counts[k] for k in ESPNET_ROWS if k != "fused_conv_module_layer"}
+    out["fused_conv_module_layer"] = espnet_xla_config(buf[:1], lens[:1])
+    return out
+
+
+def _espnet_encode(model, wav, lens, enc_cfg=None):
+    """frontend → GlobalMVN → encoder on host arrays; returns (enc, enc_lengths)."""
+    import torch
+
+    from reazonspeech_tpu_torch.espnet.asr.model import _encode
+
+    w = torch.from_numpy(np.ascontiguousarray(wav)).to(model.device)
+    lengths = torch.from_numpy(np.asarray(lens, np.int32)).to(model.device)
+    return _encode(model.params, w, lengths, model.fe_cfg, enc_cfg or model.enc_cfg)
+
+
+def espnet_profile(model, buf, lens):
+    """Where the B=4, T=549 batch's encoder spends its time: device busy ms,
+    ops and largest items (torch.profiler, 3 encodes) and its CUDA-event ms
+    (median of 5). A decode_batch is not profiled: the Graves loop's ~1.4
+    million launches a call take the profiler many minutes to reduce."""
+    import statistics
+
+    import torch
+
+    with torch.inference_mode():
+        def encode():
+            return _espnet_encode(model, buf, lens)
+
+        items = device_items(encode, 3)
+        enc_ms = statistics.median(cuda_ms(encode, 1, warmup=0) for _ in range(5))
+    check(items, "espnet: the profiler recorded no device kernel in the encoder")
+    busy = sum(ms for _, ms, _ in items)
+    log(f"espnet encoder B=4, T=549: device busy {busy:.3f} ms, "
+        f"{sum(c for _, _, c in items):.0f} device ops; CUDA events {enc_ms:.3f} ms "
+        f"(median of 5)")
+    for key, ms, calls in sorted(items, key=lambda x: -x[1])[:12]:
+        log(f"espnet encoder item: {ms:.3f} ms x{calls:.0f} {key[:100]}")
+
+
+def espnet_reference_check(model, buf, lens, single):
+    """The B=4, T=549 batch (single-pass route) and the 45 s input (T=1149,
+    streamed route) through the espnet encoder with the kernels, against the
+    same encoder with the plain twins and against the xla impls on the same
+    weights: bf16 compute over 12 blocks, the paths differ only in where bf16
+    rounds (relative L2 <= 5e-2 on the valid frames). Then Graves beam 20 on
+    the batch's first 100 encoder frames gives the same tokens, frames and
+    counts with the top-m kernel as with its plain twin, and the CTC Viterbi
+    forward pass on the card gives the same alignment as on the CPU."""
+    from dataclasses import replace
+
+    import torch
+
+    from reazonspeech_tpu_torch.decoding.ctc import ctc_viterbi_align
+    from reazonspeech_tpu_torch.decoding.transducer_graves import graves_beam_decode
+    from reazonspeech_tpu_torch.models.conformer import ctc_log_softmax
+
+    xla_cfg = replace(model.enc_cfg, attn_impl="xla", conv_impl="xla", lnd_impl="xla")
+    n = 46 * SR
+    wav1 = np.zeros((1, n), np.float32)
+    wav1[0, :len(single)] = single
+    with torch.inference_mode():
+        for label, wav, lengths in (("B=4, T=549", buf, lens),
+                                    ("B=1, T=1149", wav1, [len(single)])):
+            enc, el = _espnet_encode(model, wav, lengths)
+            check(bool(torch.isfinite(enc).all()), "espnet: non-finite encoder output")
+            frame = torch.arange(enc.shape[1], device=enc.device)
+            valid = (frame[None, :] < el[:, None])[..., None]
+            with plain_twins():
+                twins, _ = _espnet_encode(model, wav, lengths)
+            xla, _ = _espnet_encode(model, wav, lengths, xla_cfg)
+            for what, ref in (("kernels vs plain twins", twins), ("kernels vs xla impls", xla)):
+                rel = ((enc - ref) * valid).norm().item() / (ref * valid).norm().item()
+                log(f"espnet encoder {label}, {what}: relative L2 {rel:.3g} (tol 5e-2)")
+                check(rel <= 5e-2, f"espnet encoder {label} {what}: relative L2 {rel}")
+            if label.startswith("B=4"):
+                p, head = model.params, (enc[:, :100], el.clamp(max=100))
+                got = graves_beam_decode(p["predictor"], p["joint"], *head, model.rnnt_cfg,
+                                         model.decode_cfg)
+                with plain_twins():
+                    want = graves_beam_decode(p["predictor"], p["joint"], *head,
+                                              model.rnnt_cfg, model.decode_cfg)
+                lpz_log = ctc_log_softmax(p["ctc"], enc[0, :int(el[0])])
+    for g, w_, what in zip(got[:3], want[:3], ("tokens", "frames", "counts")):
+        check(torch.equal(g, w_), f"Graves {what} differ between the top-m kernel and its twin")
+    log(f"Graves beam 20, 100 frames, with the top-m kernel == with its plain twin: "
+        f"counts {got[2].tolist()}")
+    ids = np.random.default_rng(61).integers(1, lpz_log.shape[1] - 1, 60)
+    on_card = ctc_viterbi_align(lpz_log, ids)
+    check(np.array_equal(on_card, ctc_viterbi_align(lpz_log.cpu(), ids)) and len(on_card) == 60,
+          "CTC Viterbi: the card's alignment differs from the CPU's")
+    log(f"CTC Viterbi of 60 tokens over {lpz_log.shape[0]} frames: the card's path == the CPU's")
+
+
+def espnet_xla_config(buf, lens):
+    """The espnet lnd_impl="xla" configuration at full width and 4 blocks
+    (the attention and conv kernels, caller-side LayerNorms) through
+    ctc_probs of one padded 20 s window (the 22 s bucket, T=549): the
+    [B, H, T, dh] route and the layer-norm conv module's caller-LN variant.
+    Returns the latter's launches."""
+    import torch
+
+    from reazonspeech_tpu_torch import ops
+    from reazonspeech_tpu_torch.espnet import asr
+    from reazonspeech_tpu_torch.models.conformer import espnet_encoder_config
+
+    model = asr.load_model(device="cuda", checkpoint="random", enc_cfg=espnet_encoder_config(
+        num_layers=4, attn_impl="pallas", conv_impl="pallas", lnd_impl="xla",
+        compute_dtype="bfloat16", residual_dtype="float32"))
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    lpz = model.ctc_probs(buf[0, :int(lens[0])])
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    log(f"espnet lnd_impl=xla, 4 blocks: launch counts {counts}; ctc_probs of one 20 s "
+        f"window {time.perf_counter() - t0:.3f} s wall, lpz {lpz.shape}")
+    check(np.isfinite(lpz).all() and np.allclose(lpz.sum(-1), 1.0, atol=1e-3),
+          "espnet lnd_impl=xla: CTC probabilities do not sum to 1")
+    check(all(counts[k] > 0 for k in ESPNET_XLA_KERNELS),
+          f"a kernel of the espnet lnd_impl=xla path was not launched: {counts}")
+    return counts["fused_conv_module_layer"]
+
+
 def main():
     import torch
 
@@ -778,6 +1176,7 @@ def main():
     rows = kernel_checks(dev)
     counts = main_path(dev, f"{smi}")
     counts.update(k2_path(f"{smi}"))
+    counts.update(espnet_path(f"{smi}"))
     for row in rows:
         row["launches"] = counts[row["name"]]
     print(json.dumps({"kernels": rows}), flush=True)

@@ -1,4 +1,4 @@
-"""Log-mel feature extraction (PyTorch): the nemo and kaldi presets.
+"""Log-mel feature extraction (PyTorch): the nemo, kaldi and espnet presets.
 
 Port of ``reazonspeech_tpu.frontend.features``.
 
@@ -16,11 +16,15 @@ Port of ``reazonspeech_tpu.frontend.features``.
   window, HTK mel triangles in mel space, ``log(max(x, eps))``, no
   normalization. Per-frame preprocessing needs the frames themselves, so
   they are cut out (``unfold``) and multiplied by the bases.
+- **espnet** (ESPnet's default STFT frontend): no pre-emphasis, periodic
+  hann window, centered STFT as nemo's, slaney/slaney mel,
+  ``log(max(x, 1e-10))``, no normalization here (the model's GlobalMVN
+  layer normalizes).
 
 Everything is fp32, with TF32 switched off: the spectrum spans ~8 orders of
 magnitude and feeds a log, and the reference runs it at
-``Precision.HIGHEST``. Settings this module does not implement (the espnet
-preset's periodic window, other powers) raise ``ValueError``.
+``Precision.HIGHEST``. Settings this module does not implement (other
+windows, powers and normalizations) raise ``ValueError``.
 """
 
 import functools
@@ -33,8 +37,8 @@ import torch.nn.functional as F
 
 from .mel import mel_filterbank
 
-__all__ = ["FrontendConfig", "kaldi_frontend_config", "log_mel_spectrogram",
-           "nemo_frontend_config", "num_frames"]
+__all__ = ["FrontendConfig", "espnet_frontend_config", "kaldi_frontend_config",
+           "log_mel_spectrogram", "nemo_frontend_config", "num_frames"]
 
 
 @dataclass(frozen=True)
@@ -91,13 +95,28 @@ def kaldi_frontend_config(**overrides) -> FrontendConfig:
     return FrontendConfig(**cfg)
 
 
+def espnet_frontend_config(**overrides) -> FrontendConfig:
+    """ESPnet default frontend: no preemph, periodic hann, centered STFT,
+    librosa mel (slaney/slaney), log with 1e-10 clamp; normalization is done
+    by a separate GlobalMVN layer, not here."""
+    cfg = dict(
+        preemph=None,
+        window="hann_periodic",
+        log_zero_guard=1e-10,
+        log_zero_guard_type="clamp",
+        normalize=None,
+    )
+    cfg.update(overrides)
+    return FrontendConfig(**cfg)
+
+
 def _check_supported(cfg: FrontendConfig):
     if cfg.framing not in ("center", "kaldi"):
         raise ValueError(f"framing={cfg.framing!r} is not ported")
     if cfg.preemph is not None and cfg.preemph_mode not in ("global", "frame"):
         raise ValueError(f"preemph_mode={cfg.preemph_mode!r} is not ported")
-    if cfg.window not in ("hann", "povey"):
-        raise ValueError(f"window={cfg.window!r} is not ported (nemo and kaldi presets)")
+    if cfg.window not in ("hann", "hann_periodic", "povey"):
+        raise ValueError(f"window={cfg.window!r} is not ported (nemo, kaldi and espnet presets)")
     if cfg.mag_power != 2.0:
         raise ValueError("only power 2 is ported")
     if cfg.log_zero_guard_type not in ("add", "clamp"):
@@ -108,6 +127,8 @@ def _check_supported(cfg: FrontendConfig):
 
 def _make_window(cfg: FrontendConfig) -> np.ndarray:
     n = cfg.win_length
+    if cfg.window == "hann_periodic":
+        return 0.5 - 0.5 * np.cos(2 * np.pi * np.arange(n) / n)
     hann = 0.5 - 0.5 * np.cos(2 * np.pi * np.arange(n) / (n - 1))
     return hann**0.85 if cfg.window == "povey" else hann
 
@@ -183,7 +204,7 @@ def log_mel_spectrogram(waveform, lengths, cfg: FrontendConfig):
     Args:
       waveform: [B, N] float tensor (16 kHz mono)
       lengths: [B] int tensor of valid sample counts
-      cfg: FrontendConfig (nemo or kaldi preset)
+      cfg: FrontendConfig (nemo, kaldi or espnet preset)
 
     Returns:
       (features [B, T, n_mels] float32, out_lengths [B] int32). Frames beyond

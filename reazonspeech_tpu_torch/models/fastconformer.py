@@ -1,10 +1,13 @@
-"""FastConformer encoder (PyTorch).
+"""FastConformer / Conformer encoder (PyTorch).
 
-Port of ``reazonspeech_tpu.models.fastconformer`` for the nemo-v2 path:
-dw-striding 8× subsampling, then N Conformer blocks (½FFN → rel-pos MHSA →
-conv module → ½FFN → LN) at 0.08 s per output frame. Params are the
-reference's tree (block leaves stacked [L, ...]); the block loop indexes
-layer i out of the stack.
+Port of ``reazonspeech_tpu.models.fastconformer``: conv subsampling, then
+N Conformer blocks (½FFN → rel-pos MHSA → conv module → ½FFN → LN). Two
+presets of the reference run on it: nemo-v2 (dw-striding 8× subsampling,
+batch-norm conv modules, 0.08 s per output frame) and espnet
+(``models/conformer.py``: VALID conv2d 4× subsampling, LayerNorm conv
+modules, an encoder-level ``after_norm``). Params are the reference's tree
+(block leaves stacked [L, ...]); the block loop indexes layer i out of the
+stack.
 
 Two implementations per sub-block, chosen by the config as in the
 reference: ``attn_impl``/``conv_impl``/``lnd_impl="pallas"`` runs the
@@ -17,10 +20,15 @@ ffn1 residual add (``ln_dense_add``) feeding the packed attention kernel,
 with the ffn2 add, final LayerNorm and length mask in one ``add_ln``.
 
 The TPU-only machinery is not ported: the 128-alignment pad of T, the VMEM
-shape gates and sequence sharding. So every kernel runs at the true T, and
+byte budgets and sequence sharding. So every kernel runs at the true T, and
 the conv kernel runs at every T where the reference's byte gate sends long
 inputs to its XLA branch; at fp32 the two branches compute the same
-function.
+function. One shape gate is mirrored, the attention route
+(:func:`attention_route`): with ``attn_impl="pallas"`` the reference picks
+one of three kernel contracts by T and the head shape (packed q/k/v with
+the fused block tail, separate q/k/v, or [B, H, T, dh] inputs with the
+biases added and an fp32 output), and the contracts round at other points,
+so the port picks the same one at every T.
 """
 
 import math
@@ -33,7 +41,8 @@ import torch
 from ..ops.conformer_conv import fold_batch_norm, fused_conv_module
 from ..ops.ln_dense import add_ln, ln_dense, ln_dense_add
 from ..ops.relpos_attention import (
-    rel_shift, relpos_attention_fused, relpos_attention_fused_packed,
+    rel_shift, relpos_attention, relpos_attention_blockwise, relpos_attention_fused,
+    relpos_attention_fused_packed,
 )
 from .layers import (
     batch_norm_infer, batch_norm_init, conv1d, conv1d_init, conv2d, conv2d_init,
@@ -41,13 +50,17 @@ from .layers import (
     layer_norm_init, swish,
 )
 
-__all__ = ["FastConformerConfig", "init_fastconformer", "fastconformer_encode"]
+__all__ = ["FastConformerConfig", "attention_route", "fastconformer_encode",
+           "init_fastconformer"]
 
 
 @dataclass(frozen=True)
 class FastConformerConfig:
     """Field names and defaults as in the JAX package, so a checkpoint's
-    ``enc_cfg`` meta builds either package's config."""
+    ``enc_cfg`` meta builds either package's config. The defaults are the
+    nemo-v2 encoder; ``models.conformer.espnet_encoder_config`` gives the
+    espnet one (``subsampling_style="conv2d"``, ``conv_norm="layer_norm"``,
+    ``final_norm=True``)."""
 
     feat_in: int = 80
     num_layers: int = 24
@@ -57,8 +70,8 @@ class FastConformerConfig:
     conv_kernel: int = 9
     subsampling_factor: int = 8
     subsampling_channels: int = 256
-    subsampling_style: str = "dw_striding"
-    conv_norm: str = "batch_norm"
+    subsampling_style: str = "dw_striding"  # or "conv2d" (espnet, VALID full convs)
+    conv_norm: str = "batch_norm"  # or "layer_norm" (espnet)
     xscaling: bool = True
     final_norm: bool = False
     compute_dtype: str = "bfloat16"
@@ -90,15 +103,15 @@ class FastConformerConfig:
 
 
 def _check_supported(cfg: FastConformerConfig):
-    if cfg.subsampling_style != "dw_striding":
-        raise ValueError("only dw_striding subsampling is ported (nemo)")
+    if cfg.subsampling_style not in ("dw_striding", "conv2d"):
+        raise ValueError(f"unknown subsampling_style {cfg.subsampling_style!r}")
+    if cfg.conv_norm not in ("batch_norm", "layer_norm"):
+        raise ValueError(f"unknown conv_norm {cfg.conv_norm!r}")
     if cfg.seq_axis is not None:
         raise ValueError("seq_axis: sequence sharding is not ported")
     impls = (cfg.attn_impl, cfg.conv_impl, cfg.lnd_impl)
     if any(impl not in ("xla", "pallas") for impl in impls):
         raise ValueError(f"unknown impl in attn/conv/lnd_impl={impls}")
-    if cfg.conv_impl == "pallas" and cfg.conv_norm != "batch_norm":
-        raise ValueError("the conv-module kernel is ported for batch_norm only")
 
 
 # ---------------------------------------------------------------------------
@@ -133,9 +146,9 @@ def _stack(trees):
     return torch.stack(trees)
 
 
-def _sub_out_dim(n, stages):
+def _sub_out_dim(n, stages, style="dw_striding"):
     for _ in range(stages):
-        n = (n - 1) // 2 + 1  # SAME k=3 s=2 (pad 1)
+        n = (n - 1) // 2 if style == "conv2d" else (n - 1) // 2 + 1  # VALID / SAME k=3 s=2
     return n
 
 
@@ -145,10 +158,13 @@ def init_fastconformer(gen, cfg: FastConformerConfig, device="cpu"):
     c = cfg.subsampling_channels
     sub = {"conv0": conv2d_init(gen, 1, c, 3, device=device)}
     for i in range(1, stages):
-        sub[f"dw{i}"] = conv2d_init(gen, c, c, 3, groups=c, device=device)
-        sub[f"pw{i}"] = conv2d_init(gen, c, c, 1, device=device)
-    sub["proj"] = dense_init(gen, c * _sub_out_dim(cfg.feat_in, stages), cfg.d_model,
-                             device=device)
+        if cfg.subsampling_style == "conv2d":
+            sub[f"conv{i}"] = conv2d_init(gen, c, c, 3, device=device)
+        else:
+            sub[f"dw{i}"] = conv2d_init(gen, c, c, 3, groups=c, device=device)
+            sub[f"pw{i}"] = conv2d_init(gen, c, c, 1, device=device)
+    f_out = _sub_out_dim(cfg.feat_in, stages, cfg.subsampling_style)
+    sub["proj"] = dense_init(gen, c * f_out, cfg.d_model, device=device)
     blocks = _stack([_init_block(gen, cfg, device) for _ in range(cfg.num_layers)])
     tree = {"subsampling": sub, "blocks": blocks}
     if cfg.final_norm:
@@ -162,16 +178,24 @@ def init_fastconformer(gen, cfg: FastConformerConfig, device="cpu"):
 
 
 def _subsample(p, feats, lengths, cfg: FastConformerConfig):
-    """[B, T, F] -> [B, T/factor, d_model] (channels-last, as the reference)."""
+    """[B, T, F] -> [B, T/factor, d_model] (channels-last, as the reference):
+    dw-striding (SAME padding, nemo) or VALID full convs (conv2d, espnet)."""
     stages = int(np.log2(cfg.subsampling_factor))
     dt = cfg.dtype
-    pad = ((1, 1), (1, 1))
-    x = torch.relu(conv2d(p["conv0"], feats[..., None].to(dt), 2, pad, dtype=dt))
-    for i in range(1, stages):
-        x = conv2d(p[f"dw{i}"], x, 2, pad, groups=cfg.subsampling_channels, dtype=dt)
-        x = torch.relu(conv2d(p[f"pw{i}"], x, dtype=dt))
-    for _ in range(stages):
-        lengths = (lengths - 1) // 2 + 1
+    x = feats[..., None].to(dt)
+    if cfg.subsampling_style == "conv2d":
+        for i in range(stages):
+            x = torch.relu(conv2d(p[f"conv{i}"], x, 2, dtype=dt))
+        for _ in range(stages):
+            lengths = (lengths - 1) // 2
+    else:
+        pad = ((1, 1), (1, 1))
+        x = torch.relu(conv2d(p["conv0"], x, 2, pad, dtype=dt))
+        for i in range(1, stages):
+            x = conv2d(p[f"dw{i}"], x, 2, pad, groups=cfg.subsampling_channels, dtype=dt)
+            x = torch.relu(conv2d(p[f"pw{i}"], x, dtype=dt))
+        for _ in range(stages):
+            lengths = (lengths - 1) // 2 + 1
     b, t, f, ch = x.shape
     return dense(p["proj"], x.reshape(b, t, f * ch), dtype=dt), lengths
 
@@ -187,10 +211,41 @@ def _sinusoid_rel_pos(t, d_model, device):
     return torch.from_numpy(pe).to(device)
 
 
-def _packed_attn(cfg: FastConformerConfig):
-    """The attention LayerNorm and q/k/v projection as one packed ln_dense_add
-    feeding the packed attention kernel (the reference's serving path)."""
-    return cfg.attn_impl == "pallas" and cfg.lnd_impl == "pallas"
+# the reference's fused attention kernels block T and packed heads by its
+# 128-lane width and hold one query block of at most 512 rows
+_LANES, _FUSED_MAX_T = 128, 512
+# T up to which the [B, H, T, dh] contract runs single-pass (relpos_attention_diff)
+_SINGLE_PASS_MAX_T = 1024
+
+
+def attention_route(cfg: FastConformerConfig, t) -> str:
+    """Which attention contract runs at ``t`` encoder frames: "packed" (the
+    attention LayerNorm and q/k/v as one packed ln_dense_add feeding the
+    packed kernel, then the fused block tail), "fused" (separate q/k/v, the
+    biases added in the kernel), "generic" ([B, H, T, dh] inputs with the
+    biases added, fp32 out) or "xla" (the plain formula).
+
+    This mirrors the reference's choice of kernel contract
+    (``_packed_attn_ok``, ``fused_supported``): T rounded up to 128 at most
+    512, dh ≤ 128 dividing 128, and heads a multiple of 128/dh. It is not a
+    memory limit of the card: the port's kernel has no T cap. It keeps the
+    contracts apart because they round at other points (bf16 q+u in the
+    kernel or before it, the bf16 or fp32 output, the fused or unfused
+    block tail). ``ln_dense_supported``'s weight budget is not mirrored."""
+    if cfg.attn_impl != "pallas":
+        return "xla"
+    h, dh = cfg.num_heads, cfg.head_dim
+    fits = (dh <= _LANES and _LANES % dh == 0 and h % (_LANES // dh) == 0
+            and -(-t // _LANES) * _LANES <= _FUSED_MAX_T)
+    if not fits:
+        return "generic"
+    return "packed" if cfg.lnd_impl == "pallas" else "fused"
+
+
+def _generic_attn_kernel(t):
+    """The [B, H, T, dh] kernel for T frames, as ``relpos_attention_diff``
+    picks it: single-pass up to 1024, streamed beyond."""
+    return relpos_attention if t <= _SINGLE_PASS_MAX_T else relpos_attention_blockwise
 
 
 def _mhsa_packed(p, r, delta, pos_emb, lengths, cfg: FastConformerConfig):
@@ -221,15 +276,25 @@ def _mhsa_relpos(p, x_raw, pos_emb, mask, lengths, cfg: FastConformerConfig):
     v = dense(p["attn_v"], x, dtype=dt)
     pos = dense(p["attn_pos"], pos_emb, dtype=dt).reshape(-1, h, dh)  # [2T-1, H, dh]
 
-    if cfg.attn_impl == "pallas":
+    route = attention_route(cfg, t)
+    if route == "fused":
         out = relpos_attention_fused(q, k, v, pos, p["attn_bias_u"], p["attn_bias_v"],
                                      lengths, h)
         return dense(p["attn_out"], out, dtype=dt)
 
     f32 = torch.float32
     q = q.reshape(b, t, h, dh)
-    qu = (q + p["attn_bias_u"].to(dt)).to(f32)
-    qv = (q + p["attn_bias_v"].to(dt)).to(f32)
+    qu = q + p["attn_bias_u"].to(dt)
+    qv = q + p["attn_bias_v"].to(dt)
+    if route == "generic":
+        heads_first = lambda x: x.transpose(1, 2).contiguous()  # noqa: E731
+        out = _generic_attn_kernel(t)(
+            heads_first(qu), heads_first(qv), heads_first(k.reshape(b, t, h, dh)),
+            heads_first(v.reshape(b, t, h, dh)), pos, lengths)  # [B, H, T, dh] fp32
+        out = out.transpose(1, 2).to(dt).reshape(b, t, d)
+        return dense(p["attn_out"], out, dtype=dt)
+
+    qu, qv = qu.to(f32), qv.to(f32)
     ac = torch.einsum("bthd,bshd->bhts", qu, k.reshape(b, t, h, dh).to(f32))
     bd = rel_shift(torch.einsum("bthd,lhd->bhtl", qv, pos.to(f32)))
     scores = (ac + bd) / math.sqrt(dh)
@@ -244,13 +309,20 @@ def _conv_module(p, x_raw, mask, lengths, cfg: FastConformerConfig):
     pointwise. Padded frames are zeroed before the depthwise conv."""
     dt = cfg.dtype
     if cfg.conv_impl == "pallas":
-        scale, bias = fold_batch_norm(p["conv_bn"])
+        if cfg.conv_norm == "batch_norm":
+            scale, bias = fold_batch_norm(p["conv_bn"])
+            norm = "folded"
+        else:
+            scale, bias = p["conv_bn"]["scale"], p["conv_bn"]["bias"]
+            norm = "layer"
         weights = (p["conv_in"]["w"][0], p["conv_in"]["b"], p["conv_dw"]["w"],
                    p["conv_dw"]["b"], scale, bias, p["conv_out"]["w"][0], p["conv_out"]["b"])
         if cfg.lnd_impl == "pallas":  # the LayerNorm inside the kernel
-            return fused_conv_module(x_raw, lengths, *weights, ln_scale=p["conv_ln"]["scale"],
-                                     ln_bias=p["conv_ln"]["bias"], compute_dtype=dt)
-        return fused_conv_module(layer_norm(p["conv_ln"], x_raw).to(dt), lengths, *weights)
+            return fused_conv_module(x_raw, lengths, *weights, norm=norm,
+                                     ln_scale=p["conv_ln"]["scale"], ln_bias=p["conv_ln"]["bias"],
+                                     compute_dtype=dt)
+        return fused_conv_module(layer_norm(p["conv_ln"], x_raw).to(dt), lengths, *weights,
+                                 norm=norm)
     x = layer_norm(p["conv_ln"], x_raw).to(dt)
     x = glu(conv1d(p["conv_in"], x, dtype=dt))
     x = torch.where(mask[..., None], x, 0)
@@ -276,12 +348,13 @@ def _ffn(p, name, x, cfg: FastConformerConfig):
 def _block(p, x, pos_emb, mask, lengths, cfg: FastConformerConfig):
     """One Conformer block; returns the masked stream in cfg.residual_dtype.
 
-    On the packed path the residual chain runs in the kernels, as in the
-    reference's fused tail: the ffn1 add rides the q/k/v projection
-    (ln_dense_add), and the ffn2 add, the final LayerNorm and the length
-    mask are one add_ln."""
+    On the packed attention route the residual chain runs in the kernels,
+    as in the reference's fused tail: the ffn1 add rides the q/k/v
+    projection (ln_dense_add), and the ffn2 add, the final LayerNorm and
+    the length mask are one add_ln. On the other routes the tail is the
+    reference's unfused one (adds, LayerNorm and mask in plain PyTorch)."""
     res_dt = getattr(torch, cfg.residual_dtype)
-    if _packed_attn(cfg):
+    if attention_route(cfg, x.shape[1]) == "packed":
         y1 = _ffn(p, "ffn1", x, cfg)
         attn_y, r1 = _mhsa_packed(p, x, y1, pos_emb, lengths, cfg)
         r2 = r1 + attn_y.to(r1.dtype)

@@ -1,11 +1,17 @@
 """Kernel-backed ops. Each public op launches a hand-written CUDA kernel
 (``csrc/``) on CUDA tensors and runs its ``*_plain`` PyTorch twin on CPU
 tensors. Every kernel launch is counted under the kernel's name
-(:func:`launch_counts`); the conv module's two forms count apart, as
+(:func:`launch_counts`); the conv module's four forms count apart, as
 ``fused_conv_module`` (caller-side LayerNorm) and ``fused_conv_module_ln``
-(in-kernel LayerNorm), and the Zipformer shared attention's two entries
-as ``shared_rel_attention`` (single pass) and
-``shared_rel_attention_blockwise`` (streamed)."""
+(in-kernel LayerNorm) with the folded batch norm, and
+``fused_conv_module_layer`` and ``fused_conv_module_ln_layer`` with the
+per-frame LayerNorm; the [B, H, T, dh] attention's two entries as
+``relpos_attention`` (single pass) and ``relpos_attention_blockwise``
+(streamed), and the Zipformer shared attention's as
+``shared_rel_attention`` and ``shared_rel_attention_blockwise``. The
+[B, H, T, dh] attention and its twins are imported from
+``ops.relpos_attention``: the single-pass entry shares the module's name,
+so this package does not re-export them."""
 
 from ._kernels import KERNELS, launches
 from .beam_topk import topm_logsoftmax, topm_logsoftmax_plain

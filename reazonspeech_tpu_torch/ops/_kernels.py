@@ -45,12 +45,19 @@ _SIGNATURES = {
     "rs_relpos_attention_fused": [_P] * 8 + [_I] * 4 + [_P],
     # qkv, pos, bias_u, bias_v, lengths, out, B, T, H, dh, stream
     "rs_relpos_attention_fused_packed": [_P] * 6 + [_I] * 4 + [_P],
+    # qu, qv, k, v, pos, lengths, out, B, T, H, dh, stream
+    "rs_relpos_attention": [_P] * 7 + [_I] * 4 + [_P],
+    "rs_relpos_attention_blockwise": [_P] * 7 + [_I] * 4 + [_P],
     # x, w_in, b_in, dw, b_dw, bn_scale, bn_bias, w_out, b_out, lengths,
     # glu scratch, swish scratch, out, B, T, D, K, stream
     "rs_fused_conv_module": [_P] * 13 + [_I] * 4 + [_P],
     # x_raw, ln_g, ln_b, w_in, b_in, dw, b_dw, bn_scale, bn_bias, w_out, b_out,
     # lengths, LN scratch, glu scratch, swish scratch, out, B, T, D, K, stream
     "rs_fused_conv_module_ln": [_P] * 16 + [_I] * 4 + [_P],
+    # the two forms again with the per-frame LayerNorm's affine in place of
+    # the folded batch norm
+    "rs_fused_conv_module_layer": [_P] * 13 + [_I] * 4 + [_P],
+    "rs_fused_conv_module_ln_layer": [_P] * 16 + [_I] * 4 + [_P],
     # x, g, b, w0, w1, w2, c0, c1, c2, n0, n1, n2, LN scratch, out, M, D,
     # swish, eps, stream
     "rs_ln_dense": [_P] * 9 + [_I] * 3 + [_P] * 2 + [_I] * 3 + [_F, _P],

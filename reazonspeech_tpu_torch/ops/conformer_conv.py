@@ -1,18 +1,26 @@
-"""Fused Conformer convolution module (folded batch norm).
+"""Fused Conformer convolution module (folded batch norm or per-frame
+LayerNorm).
 
 ``fused_conv_module`` is the port of
-``reazonspeech_tpu.ops.conformer_conv.fused_conv_module`` with
-``norm="folded"``:
+``reazonspeech_tpu.ops.conformer_conv.fused_conv_module``:
 
     [LayerNorm →] pointwise D→2D (+b) → GLU → zero rows ≥ length →
-    depthwise K-tap SAME (+b) → folded batch norm → swish → pointwise D→D (+b)
+    depthwise K-tap SAME (+b) → norm → swish → pointwise D→D (+b)
+
+with ``norm="folded"`` (nemo: batch norm folded into a scale and bias) or
+``norm="layer"`` (espnet: a LayerNorm over D per frame, fp32 statistics,
+eps 1e-5, then the given scale and bias).
 
 The pre-module LayerNorm is done by the caller (x is the normalized input
 in the compute dtype), or, with ``ln_scale``/``ln_bias``, inside the kernel
 (x is the raw fp32 residual stream, normalized in fp32 and rounded to
 ``compute_dtype``). On a CUDA tensor it launches the hand-written Hopper
 kernels in ``csrc/conformer_conv.cu`` (three launches through two scratch
-tensors, one more for the in-kernel LayerNorm); on a CPU tensor it runs
+tensors, one more for the in-kernel LayerNorm; the layer variant's depthwise
+launch is a row pass). Its four C entries count apart:
+``fused_conv_module`` and ``fused_conv_module_ln`` (folded norm, caller-side
+and in-kernel LayerNorm), ``fused_conv_module_layer`` and
+``fused_conv_module_ln_layer`` (the per-frame LayerNorm). On a CPU tensor it runs
 :func:`fused_conv_module_plain`, the plain formula with the JAX kernel's
 dtype chain (bf16 matmul inputs with fp32 accumulation, fp32 GLU,
 depthwise, norm and swish, output in the compute dtype).
@@ -35,7 +43,8 @@ def fold_batch_norm(p, eps=1e-5):
 
 
 def fused_conv_module_plain(x, lengths, w_in, b_in, dw, b_dw, bn_scale, bn_bias,
-                            w_out, b_out, *, ln_scale=None, ln_bias=None, compute_dtype=None):
+                            w_out, b_out, *, norm="folded", ln_scale=None, ln_bias=None,
+                            compute_dtype=None):
     """Plain PyTorch twin of the kernel (same contract as
     :func:`fused_conv_module`)."""
     b, t, d = x.shape
@@ -54,6 +63,10 @@ def fused_conv_module_plain(x, lengths, w_in, b_in, dw, b_dw, bn_scale, bn_bias,
     for j in range(k):
         acc = acc + hp[:, j : j + t] * taps[j]
     acc = acc + b_dw.to(f32)
+    if norm == "layer":
+        mean = acc.mean(dim=-1, keepdim=True)
+        var = (acc - mean).square().mean(dim=-1, keepdim=True)
+        acc = (acc - mean) * torch.rsqrt(var + 1e-5)
     y = acc * bn_scale.to(f32) + bn_bias.to(f32)
     y = y * torch.sigmoid(y)
     out = y.to(dt).to(f32) @ w_out.to(dt).to(f32) + b_out.to(f32)
@@ -61,7 +74,8 @@ def fused_conv_module_plain(x, lengths, w_in, b_in, dw, b_dw, bn_scale, bn_bias,
 
 
 def fused_conv_module(x, lengths, w_in, b_in, dw, b_dw, bn_scale, bn_bias,
-                      w_out, b_out, *, ln_scale=None, ln_bias=None, compute_dtype=None):
+                      w_out, b_out, *, norm="folded", ln_scale=None, ln_bias=None,
+                      compute_dtype=None):
     """Fused Conformer conv module.
 
     Args:
@@ -70,25 +84,32 @@ def fused_conv_module(x, lengths, w_in, b_in, dw, b_dw, bn_scale, bn_bias,
       lengths: [B] int32 valid frame counts
       w_in: [D, 2D], b_in: [2D]   pointwise expansion (GLU halves it)
       dw: [K, D] or [K, 1, D], b_dw: [D]   depthwise taps
-      bn_scale, bn_bias: [D] folded batch norm (:func:`fold_batch_norm`)
+      bn_scale, bn_bias: [D] folded batch norm (:func:`fold_batch_norm`), or
+        the per-frame LayerNorm's scale and bias with ``norm="layer"``
+      norm: "folded" or "layer"
       w_out: [D, D], b_out: [D]
       ln_scale, ln_bias: [D] pre-module LayerNorm affine (fp32 statistics,
         eps 1e-5), or None
       compute_dtype: the matmul dtype (default x.dtype)
 
     Returns [B, T, D] in the compute dtype. On CUDA the compute dtype is
-    bf16, x is bf16 (fp32 with the in-kernel LayerNorm) and D % 64 == 0;
+    bf16, x is bf16 (fp32 with the in-kernel LayerNorm) and D % 64 == 0
+    (D <= 2048 with ``norm="layer"``);
     weights are cast to the kernel's dtypes here, as the JAX wrapper casts
     them.
     """
+    if norm not in ("folded", "layer"):
+        raise ValueError(f"fused_conv_module: unknown norm {norm!r}")
     if x.device.type == "cpu":
         return fused_conv_module_plain(x, lengths, w_in, b_in, dw, b_dw, bn_scale, bn_bias,
-                                       w_out, b_out, ln_scale=ln_scale, ln_bias=ln_bias,
-                                       compute_dtype=compute_dtype)
+                                       w_out, b_out, norm=norm, ln_scale=ln_scale,
+                                       ln_bias=ln_bias, compute_dtype=compute_dtype)
     b, t, d = x.shape
     k = dw.shape[0]
-    if d % 64:
-        raise ValueError(f"fused_conv_module: D={d} must be a multiple of 64")
+    layer = norm == "layer"
+    if d % 64 or (layer and d > 2048):
+        raise ValueError(f"fused_conv_module: D={d} must be a multiple of 64"
+                         + (" up to 2048 with norm='layer'" if layer else ""))
     bf16, f32, dev = torch.bfloat16, torch.float32, x.device
     in_ln = ln_scale is not None
     if (compute_dtype or x.dtype) != bf16:
@@ -113,17 +134,18 @@ def fused_conv_module(x, lengths, w_in, b_in, dw, b_dw, bn_scale, bn_bias,
     weights = (w_in.data_ptr(), b_in.data_ptr(), taps.data_ptr(), b_dw.data_ptr(),
                bn_scale.data_ptr(), bn_bias.data_ptr(), w_out.data_ptr(), b_out.data_ptr(),
                lengths.data_ptr())
+    suffix = "_layer" if layer else ""
     with torch.cuda.device(dev):
         if in_ln:
             g, bb = (v.to(f32).contiguous() for v in (ln_scale, ln_bias))
             check_cuda("ln_scale", g, f32, (d,), dev)
             check_cuda("ln_bias", bb, f32, (d,), dev)
             xn = torch.empty((b, t, d), dtype=bf16, device=dev)  # scratch: bf16(LN(x))
-            launch("rs_fused_conv_module_ln", x.data_ptr(), g.data_ptr(), bb.data_ptr(),
-                   *weights, xn.data_ptr(), glu.data_ptr(), y.data_ptr(), out.data_ptr(), b,
-                   t, d, k, stream_of(x))
+            launch("rs_fused_conv_module_ln" + suffix, x.data_ptr(), g.data_ptr(),
+                   bb.data_ptr(), *weights, xn.data_ptr(), glu.data_ptr(), y.data_ptr(),
+                   out.data_ptr(), b, t, d, k, stream_of(x))
         else:
-            launch("rs_fused_conv_module", x.data_ptr(), *weights, glu.data_ptr(),
+            launch("rs_fused_conv_module" + suffix, x.data_ptr(), *weights, glu.data_ptr(),
                    y.data_ptr(), out.data_ptr(), b, t, d, k, stream_of(x))
     return out
 

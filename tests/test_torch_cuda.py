@@ -18,6 +18,10 @@ from reazonspeech_tpu_torch.ops import (
     shared_rel_attention_blockwise, shared_rel_attention_blockwise_plain,
     shared_rel_attention_plain, topm_logsoftmax, topm_logsoftmax_plain,
 )
+from reazonspeech_tpu_torch.ops.relpos_attention import (
+    relpos_attention, relpos_attention_blockwise, relpos_attention_blockwise_plain,
+    relpos_attention_plain,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -304,3 +308,102 @@ def test_tiny_k2_model_runs_both_entries(dev, monkeypatch):
     assert isinstance(ret.text, str)
     counts = launch_counts()
     assert counts["shared_rel_attention"] > 0 and counts["shared_rel_attention_blockwise"] > 0
+
+
+# (b, h, dh, t): espnet's 20 s window (B·H = 8 and 32, T=549), an odd small
+# shape, nemo's head size, and espnet's 45 s input (T=1149)
+BHTD_SHAPES = [(1, 8, 64, 549), (4, 8, 64, 549), (3, 2, 16, 70), (2, 8, 128, 130),
+               (1, 8, 64, 1149)]
+
+
+def _bhtd_inputs(dev, b, h, dh, t, seed):
+    gen = torch.Generator().manual_seed(seed)
+    qu, qv, k, v = (_rand(gen, b, h, t, dh, scale=0.5) for _ in range(4))
+    pos = _rand(gen, 2 * t - 1, h, dh, scale=0.5)
+    lengths = torch.tensor([t] + [max(1, t - 37 * i) for i in range(1, b)], dtype=torch.int32,
+                           device=dev)
+    return qu, qv, k, v, pos, lengths
+
+
+@pytest.mark.parametrize("b,h,dh,t", BHTD_SHAPES)
+def test_relpos_attention_bhtd_kernel_matches_plain(dev, b, h, dh, t):
+    """The single-pass entry (two key sweeps, probabilities normalised before
+    their bf16 cast, as the twin) and the streamed entry (64-key online
+    softmax, against the twin's block loop at block=64): fp32 out within
+    2e-3 abs, one bf16 ulp of a probability times |v| <= ~2 on a few keys."""
+    args = _bhtd_inputs(dev, b, h, dh, t, seed=t + b)
+    got = relpos_attention(*args)
+    want = relpos_attention_plain(*args)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32 and got.shape == (b, h, t, dh)
+    assert _max_err(got, want) <= 2e-3
+    got = relpos_attention_blockwise(*args)
+    want = relpos_attention_blockwise_plain(*args, block=64)
+    torch.cuda.synchronize()
+    assert _max_err(got, want) <= 2e-3
+
+
+def test_relpos_attention_bhtd_wrong_inputs_raise(dev):
+    qu, qv, k, v, pos, lengths = _bhtd_inputs(dev, 2, 2, 16, 33, seed=0)
+    with pytest.raises(TypeError):
+        relpos_attention(qu.float(), qv, k, v, pos, lengths)  # fp32 qu
+    with pytest.raises(ValueError):
+        relpos_attention_blockwise(qu, qv, k, v, pos[:10], lengths)  # short pos table
+    with pytest.raises(ValueError):
+        relpos_attention(*(x[..., :8] for x in (qu, qv, k, v)), pos[..., :8], lengths)  # dh=8
+
+
+@pytest.mark.parametrize("in_ln", [False, True])
+@pytest.mark.parametrize("t,d,k", [(549, 512, 31), (45, 128, 31), (33, 256, 9)])
+def test_conv_module_layer_norm_kernel_matches_plain(dev, in_ln, t, d, k):
+    """norm="layer" (espnet), with the pre-module LayerNorm by the caller and
+    inside: bf16 out, fp32 inside, 0.03 abs as the folded forms."""
+    gen = torch.Generator().manual_seed(t + d)
+    f32 = torch.float32
+    x = _rand(gen, 2, t, d, dtype=f32) + 1.0
+    if not in_ln:
+        x = x.to(torch.bfloat16)
+    args = (x, torch.tensor([t, t // 2], dtype=torch.int32, device=dev),
+            _rand(gen, d, 2 * d, scale=d ** -0.5, dtype=f32),
+            _rand(gen, 2 * d, scale=0.1, dtype=f32),
+            _rand(gen, k, 1, d, scale=k ** -0.5, dtype=f32), _rand(gen, d, scale=0.1, dtype=f32),
+            1.0 + _rand(gen, d, scale=0.1, dtype=f32), _rand(gen, d, scale=0.1, dtype=f32),
+            _rand(gen, d, d, scale=d ** -0.5, dtype=f32), _rand(gen, d, scale=0.1, dtype=f32))
+    kw = dict(norm="layer")
+    if in_ln:
+        kw.update(ln_scale=1.0 + _rand(gen, d, scale=0.1, dtype=f32),
+                  ln_bias=_rand(gen, d, scale=0.1, dtype=f32), compute_dtype=torch.bfloat16)
+    reset_launch_counts()
+    got = fused_conv_module(*args, **kw)
+    want = fused_conv_module_plain(*args, **kw)
+    torch.cuda.synchronize()
+    entry = "fused_conv_module_ln_layer" if in_ln else "fused_conv_module_layer"
+    assert launch_counts()[entry] == 1
+    assert _max_err(got, want) <= 0.03
+
+
+def test_tiny_espnet_model_runs_the_kernels(dev, monkeypatch):
+    """The espnet path end to end on the card at a tiny width (2 heads of
+    dh=64): the packed route on the 20 s find_blank pass (T=499), the
+    [B, H, T, dh] single-pass route on the 22 s window (T=549), the streamed
+    entry there with the dispatch threshold lowered, the layer-norm conv
+    module, and the top-m kernel in Graves beam search."""
+    from reazonspeech_tpu_torch.espnet.asr import audio_from_numpy, load_model, transcribe
+    from reazonspeech_tpu_torch.models import fastconformer as fc
+    from reazonspeech_tpu_torch.models.conformer import espnet_encoder_config
+
+    enc = espnet_encoder_config(num_layers=2, d_model=128, num_heads=2, subsampling_channels=32,
+                                attn_impl="pallas", conv_impl="pallas", lnd_impl="pallas")
+    model = load_model("cuda", checkpoint="random", enc_cfg=enc, beam_size=4)
+    wav = (np.random.default_rng(0).standard_normal(24 * 16000) * 0.1).astype(np.float32)
+    reset_launch_counts()
+    ret = transcribe(model, audio_from_numpy(wav, 16000))
+    assert isinstance(ret.text, str)
+    counts = launch_counts()
+    for name in ("relpos_attention", "relpos_attention_fused_packed", "ln_dense_add", "add_ln",
+                 "fused_conv_module_ln_layer", "ln_dense", "topm_logsoftmax"):
+        assert counts[name] > 0, counts
+    monkeypatch.setattr(fc, "_SINGLE_PASS_MAX_T", 500)
+    reset_launch_counts()
+    model.decode_single(wav[:21 * 16000])
+    assert launch_counts()["relpos_attention_blockwise"] > 0

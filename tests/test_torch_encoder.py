@@ -165,8 +165,9 @@ def test_unported_settings_raise(setup):
     _, _, tenc, tr, tree = setup
     p = params_from_numpy(tree["encoder"])
     feats, lens = torch.zeros(1, 16, tenc.feat_in), torch.tensor([16])
-    for bad in (dict(lnd_impl="triton"), dict(subsampling_style="conv2d"),
-                dict(conv_norm="layer_norm")):
+    # conv2d subsampling and layer_norm conv modules are ported (espnet)
+    for bad in (dict(lnd_impl="triton"), dict(subsampling_style="conv1d"),
+                dict(conv_norm="group_norm"), dict(seq_axis="seq")):
         with pytest.raises(ValueError):
             tfc.fastconformer_encode(p, feats, lens, replace(tenc, **bad))
     # the stateless predictor is ported (k2); greedy blank-run skipping is not

@@ -42,10 +42,10 @@ def test_mel_filterbank_is_the_reference():
 
 
 def test_unported_presets_raise():
-    """The nemo and kaldi presets are ported; the espnet preset's periodic
-    window, other powers and normalizations, and per-frame preprocessing on
-    centred frames raise."""
-    for overrides in (dict(window="hann_periodic"), dict(mag_power=1.0),
+    """The nemo, kaldi and espnet presets are ported; other windows (the
+    hamming one), other powers and normalizations, and per-frame
+    preprocessing on centred frames raise."""
+    for overrides in (dict(window="hamming"), dict(mag_power=1.0),
                       dict(normalize="per_utterance"), dict(remove_dc=True)):
         with pytest.raises(ValueError):
             log_mel_spectrogram(torch.zeros(1, 1600), torch.tensor([1600]),

@@ -19,7 +19,15 @@ leaked = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "j
 jax_pkg = sorted(m for m in sys.modules
                  if m == "reazonspeech_tpu" or m.startswith("reazonspeech_tpu."))
 print(len(names), ",".join(leaked + jax_pkg))
+print(" ".join(names))
 """
+
+# the modules of the espnet slice, among those the walk must import
+ESPNET_MODULES = [
+    "reazonspeech_tpu_torch.espnet.asr." + m
+    for m in ("model", "ctc", "transcribe", "interface", "cli")
+] + ["reazonspeech_tpu_torch.decoding.ctc", "reazonspeech_tpu_torch.decoding.transducer_graves",
+     "reazonspeech_tpu_torch.models.conformer"]
 
 
 def test_port_imports_no_jax():
@@ -27,6 +35,9 @@ def test_port_imports_no_jax():
     out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], env=env, cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    n_modules, leaked = out.stdout.split()[0], out.stdout.strip().partition(" ")[2]
+    first, names = out.stdout.splitlines()[:2]
+    n_modules, leaked = first.split()[0], first.strip().partition(" ")[2]
     assert int(n_modules) >= 20
     assert leaked == "", f"imported by the port: {leaked}"
+    missing = sorted(set(ESPNET_MODULES) - set(names.split()))
+    assert not missing, f"not imported: {missing}"
