@@ -22,6 +22,9 @@ Phases, each of which fails the run (nonzero exit, no result line):
    and its streamed entry at a 45 s input's T=1149, the layer-norm conv
    module at T=549 with and without its in-kernel pre-LN, the packed route's
    kernels at the find_blank pass's T=499, and the top-m at R=80, V=2,182;
+   then the beam decoders' step kernels in fp32: the fused joint + top-m at
+   nemo ALSD's, espnet Graves' and k2 ALSD's shapes and on exact ties, and
+   the LSTM cell at nemo's and espnet's predictors beside torch.lstm_cell;
 4. nemo path: load_model(device="cuda", checkpoint="random") in its GPU
    serving configuration (lnd_impl="pallas": every encoder kernel) at the
    full xlarge width and depth (24 blocks, d=1024), transcribe_batch of
@@ -57,9 +60,24 @@ Phases, each of which fails the run (nonzero exit, no result line):
    blocks through ctc_probs (the caller-side LayerNorm conv variant);
    Launch counts are reset before and read after each path, and every
    kernel of each path must have launched;
-7. the kernels' JSON line (each kernel's time, its plain twin's, the bound
-   of its work on this card, the launches on its path), then the last line
-   {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
+7. the beam decoders' step kernels (rows 12-13: joint_impl and
+   lstm_impl="pallas", off by default in every loader): after the nemo
+   path, load_model(decode_cfg=BeamDecodeConfig(... joint_impl="pallas",
+   lstm_impl="pallas")) at the xlarge width and depth, transcribe_batch of
+   4 x 30 s, then the device launches and host ms per ALSD step with and
+   without the switches; after the k2 path, load_model_container(
+   decoding="beam") at ZipformerConfig.large() with joint_impl="pallas",
+   transcribe_batch of 4 x 30 s; in the espnet path, decode_batch of the
+   four 20 s windows with both switches, pops per lane-frame, ms and
+   device launches per issued pop with and without them. Each runs again
+   with the two kernels' plain twins: the tokens must be equal, or else the
+   first differing step's two candidates must lie within 1e-4 in fp32 (a
+   near-tie the two summation orders break differently);
+8. the kernels' JSON line (each kernel's time, its plain twin's, the bound
+   of its work on this card, the launches on its path, and the time of one
+   PyTorch call computing the same function where there is one), then the
+   last line {"ok": true, "device": {"platform": "gpu", "kind": ...,
+   "count": ...}}.
 
 Imports no JAX. Runs in a few minutes, the build included.
 """
@@ -89,6 +107,8 @@ REPLACES = {
     "relpos_attention_blockwise": "reazonspeech_tpu/ops/relpos_attention.py:199",
     "fused_conv_module_layer": "reazonspeech_tpu/ops/conformer_conv.py:98",
     "fused_conv_module_ln_layer": "reazonspeech_tpu/ops/conformer_conv.py:98",
+    "joint_topm": "reazonspeech_tpu/ops/beam_topk.py:152",
+    "lstm_cell_step": "reazonspeech_tpu/ops/lstm_step.py:67",
 }
 SOURCES = {
     "relpos_attention_fused": "reazonspeech_tpu_torch/csrc/relpos_attention.cu",
@@ -105,6 +125,8 @@ SOURCES = {
     "relpos_attention_blockwise": "reazonspeech_tpu_torch/csrc/relpos_attention.cu",
     "fused_conv_module_layer": "reazonspeech_tpu_torch/csrc/conformer_conv.cu",
     "fused_conv_module_ln_layer": "reazonspeech_tpu_torch/csrc/conformer_conv.cu",
+    "joint_topm": "reazonspeech_tpu_torch/csrc/joint_topm.cu",
+    "lstm_cell_step": "reazonspeech_tpu_torch/csrc/lstm_step.cu",
 }
 # the kernels each configuration's encoder and decoder launch
 SERVING_KERNELS = ("ln_dense", "ln_dense_add", "relpos_attention_fused_packed",
@@ -115,6 +137,8 @@ ESPNET_KERNELS = ("ln_dense", "ln_dense_add", "relpos_attention_fused_packed", "
                   "relpos_attention", "relpos_attention_blockwise", "fused_conv_module_ln_layer",
                   "topm_logsoftmax")
 ESPNET_XLA_KERNELS = ("relpos_attention", "fused_conv_module_layer")
+# the beam decoders' opt-in step kernels (joint_impl/lstm_impl="pallas")
+STEP_KERNELS = ("joint_topm", "lstm_cell_step")
 # the kernels whose JSON rows take their launches from the espnet runs
 ESPNET_ROWS = ("relpos_attention", "relpos_attention_blockwise", "fused_conv_module_ln_layer",
                "fused_conv_module_layer")
@@ -260,6 +284,18 @@ def flops_topm(args, out):  # max, exp-sum and m masked argmax passes per row
     return {"fp32": (3.0 + m) * logits.numel()}
 
 
+def flops_joint(args, out):  # both joint products, then the top-m passes over [R, V]
+    w_pred, w_out, enc, m = args[0], args[2], args[4], args[6]
+    (h, j), v, r = w_pred.shape, w_out.shape[1], enc.shape[0]
+    return {"fp32": 2.0 * r * j * (h + v) + (3.0 + m) * r * v}
+
+
+def flops_lstm(args, out):  # the gate products, then ~10 operations an element of c'
+    w_ih, w_hh, x = args[0], args[1], args[3]
+    return {"fp32": 2.0 * x.shape[0] * (w_ih.shape[0] + w_hh.shape[0]) * w_ih.shape[1]
+            + 10.0 * out[1].numel()}
+
+
 def flops_shared(args, out):  # the T² products q·kᵀ, qp·pos and p·v, all bf16 operands
     q, qp, lengths = args[0], args[2], args[5]
     g, t, qd = q.shape
@@ -312,7 +348,7 @@ def kernel_checks(dev):
     check(torch.equal(got[2], want[2]), "topm_logsoftmax: tie order differs from the plain twin")
     log("topm_logsoftmax integer-tie case: indices equal")
     return (rows + bucket_kernel_checks(rand, dev) + shared_attention_checks(rand, dev)
-            + espnet_kernel_checks(rand, dev))
+            + espnet_kernel_checks(rand, dev) + step_kernel_checks(rand, dev))
 
 
 def bf16_tol(want):
@@ -534,13 +570,79 @@ def espnet_kernel_checks(rand, dev):
     return rows
 
 
+def step_kernel_checks(rand, dev):
+    """The beam decoders' step kernels at the shapes their paths give them
+    (fp32, as the decoders call them): the fused joint + top-m (row 12) at
+    nemo ALSD (R = 4 lanes x beam 4, H = J = 640, V = 3,001, blank last,
+    relu, m = 4), espnet Graves (R = 4 lanes, H = J = 256, V = 2,182, blank
+    first, tanh, m = beam 20) and k2 ALSD (R = 16, H = J = 512, V = 2,179,
+    blank first, tanh, m = 4), and on exact ties; the LSTM cell (row 13) at
+    nemo's (R = 16, H = 640) and espnet's (R = 4, H = 256) predictors, with
+    torch.lstm_cell (weights as [4H, in]) timed beside it."""
+    import torch
+
+    from reazonspeech_tpu_torch import ops
+
+    f32, rows = torch.float32, []
+    acts = {"relu": torch.relu, "tanh": torch.tanh, "sigmoid": torch.sigmoid}
+
+    def joint_args(r, h, v, blank, act, m):
+        # redrawn until the m + 1 best labels of every row are 1e-5 apart in
+        # float64: no near-tie that two fp32 summation orders could break
+        # differently, so the picks must be equal
+        while True:
+            args = (rand(h, h, scale=h ** -0.5, dtype=f32), rand(h, scale=0.1, dtype=f32),
+                    rand(h, v, scale=h ** -0.5, dtype=f32), rand(v, scale=0.1, dtype=f32),
+                    rand(r, h, dtype=f32), rand(r, h, dtype=f32))
+            wp, bp, wo, bo, enc, dec = (a.double() for a in args)
+            logits = acts[act](enc + (dec @ wp + bp)) @ wo + bo
+            logits[:, blank] = -1e30
+            best = logits.topk(m + 1, dim=1).values
+            if (best[:, :-1] - best[:, 1:]).min() > 1e-5:
+                return args + (m, blank)
+
+    # fp32 both, the sums in another order (tiles of 32 columns, 8 slices of
+    # the depth): 1e-5 on log-probs of |.| < ~20; indices exactly
+    for label, r, h, v, blank, act, m in (("nemo ALSD", 16, 640, 3001, 3000, "relu", 4),
+                                          ("espnet Graves", 4, 256, 2182, 0, "tanh", 20),
+                                          ("k2 ALSD", 16, 512, 2179, 0, "tanh", 4)):
+        args = joint_args(r, h, v, blank, act, m)
+        row = _compare("joint_topm", ops.joint_topm, ops.joint_topm_plain, args, 1e-5, iters=200,
+                       kwargs=dict(activation=act, compute_dtype="float32"),
+                       label=f"{label}, R={r}, H=J={h}, V={v}, m={m}", flops=flops_joint)
+        rows += [row] if label == "nemo ALSD" else []
+        if label == "espnet Graves":  # a zero output projection: logits = integer b_out
+            tied = (*args[:2], torch.zeros_like(args[2]),
+                    torch.randint(-3, 4, (v,), device=dev).to(f32), *args[4:])
+            got = ops.joint_topm(*tied, activation=act, compute_dtype="float32")
+            want = ops.joint_topm_plain(*tied, activation=act, compute_dtype="float32")
+            torch.cuda.synchronize()
+            check(torch.equal(got[2], want[2]), "joint_topm: tie order differs from the twin")
+            log("joint_topm integer-tie case (m=20): indices equal")
+    for label, r, h in (("nemo ALSD", 16, 640), ("espnet Graves", 4, 256)):
+        w_ih, w_hh = rand(h, 4 * h, scale=h ** -0.5, dtype=f32), rand(h, 4 * h, scale=h ** -0.5,
+                                                                      dtype=f32)
+        bias, x = rand(4 * h, scale=0.1, dtype=f32), rand(r, h, dtype=f32)
+        hp, cp = rand(r, h, scale=0.5, dtype=f32), rand(r, h, dtype=f32)
+        w_ih_t, w_hh_t, zero = w_ih.t().contiguous(), w_hh.t().contiguous(), torch.zeros_like(bias)
+        row = _compare("lstm_cell_step", ops.lstm_cell_step, ops.lstm_cell_step_plain,
+                       (w_ih, w_hh, bias, x, hp, cp), (1e-5, 1e-5), iters=200,
+                       kwargs=dict(compute_dtype="float32"), label=f"{label}, R={r}, H={h}",
+                       flops=flops_lstm,
+                       library=lambda: torch.lstm_cell(x, (hp, cp), w_ih_t, w_hh_t, bias, zero))
+        rows += [row] if label == "nemo ALSD" else []
+    return rows
+
+
 def _compare(name, kernel, plain, args, atol, iters, *, flops, kwargs=None, label=None,
-             plain_kwargs=None):
+             plain_kwargs=None, library=None):
     """Kernel against plain twin on the same inputs, then both timed.
     ``atol``: the max abs error allowed, "bf16" for :func:`bf16_tol`, or a
     tuple of those, one per output; ``label``: the shape, where a kernel is
     checked at more than one; ``flops(args, out)``: the call's operations
-    for its bound; ``plain_kwargs``: extra arguments of the twin only."""
+    for its bound; ``plain_kwargs``: extra arguments of the twin only;
+    ``library``: one PyTorch call computing the same function on the same
+    inputs, timed beside them (never used by the port)."""
     import torch
 
     kwargs = kwargs or {}
@@ -549,7 +651,7 @@ def _compare(name, kernel, plain, args, atol, iters, *, flops, kwargs=None, labe
     got, want = kernel(*args, **kwargs), plain(*args, **twin_kwargs)
     torch.cuda.synchronize()
     bound, bound_by = bound_ms(flops(args, got), args, got)
-    if name == "topm_logsoftmax":  # indices must be equal, values within atol
+    if name in ("topm_logsoftmax", "joint_topm"):  # indices equal, values within atol
         check(torch.equal(got[2], want[2]), f"{what}: indices differ from the plain twin")
         got, want, atol = got[:2], want[:2], (atol, atol)
     elif not isinstance(got, tuple):
@@ -567,26 +669,33 @@ def _compare(name, kernel, plain, args, atol, iters, *, flops, kwargs=None, labe
     plain_ms = cuda_ms(lambda: plain(*args, **twin_kwargs), iters)
     dev_ms = device_ms(lambda: kernel(*args, **kwargs), iters)
     plain_dev_ms = device_ms(lambda: plain(*args, **twin_kwargs), max(1, iters // 4))
+    lib = ""
+    library_ms = None
+    if library is not None:
+        library_ms = cuda_ms(library, iters)
+        lib = f"; library call events ms {library_ms:.4f}, device ms " \
+              f"{fmt_ms(device_ms(library, iters))}"
     log(f"{what}: max_abs_err {', '.join(stated)}; events ms kernel {ms:.4f}, plain "
         f"{plain_ms:.4f}; device ms kernel {fmt_ms(dev_ms)}, plain {fmt_ms(plain_dev_ms)}; "
-        f"bound {bound:.4f} ms ({bound_by})")
-    # library_ms: no single PyTorch call computes any of these functions on
-    # these inputs (each is a chain: a norm then a product, scores with a
-    # relative-position band, a log-softmax then a top-m)
+        f"bound {bound:.4f} ms ({bound_by}){lib}")
+    # library_ms is null where no single PyTorch call computes the function
+    # on these inputs (a chain: a norm then a product, scores with a
+    # relative-position band, a joint then a log-softmax then a top-m)
     return {"name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": REPLACES[name], "launches": 0, "max_abs_err": max(errs),
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by,
-            "library_ms": None}
+            "library_ms": library_ms}
 
 
 # --- phases 4 and 5: the nemo and k2 paths ------------------------------------
 
 
 @contextlib.contextmanager
-def plain_twins():
-    """Run the same path with every kernel wrapper's plain twin in its place."""
+def plain_twins(only=None):
+    """Run the same path with every kernel wrapper's plain twin in its place
+    (or only those of the kernels named in ``only``)."""
     from reazonspeech_tpu_torch import ops
-    from reazonspeech_tpu_torch.decoding import rnnt_beam, transducer_graves
+    from reazonspeech_tpu_torch.decoding import rnnt_beam
     from reazonspeech_tpu_torch.models import fastconformer as fc
     from reazonspeech_tpu_torch.models import zipformer as zf
     from reazonspeech_tpu_torch.ops.relpos_attention import (
@@ -599,8 +708,10 @@ def plain_twins():
         "ln_dense", "ln_dense_add", "add_ln", "relpos_attention_fused",
         "relpos_attention_fused_packed", "fused_conv_module", "relpos_attention",
         "relpos_attention_blockwise")]
-    targets += [(rnnt_beam, "topm_logsoftmax"), (transducer_graves, "topm_logsoftmax")]
+    # both beam decoders take their step ops from rnnt_beam
+    targets += [(rnnt_beam, name) for name in ("topm_logsoftmax",) + STEP_KERNELS]
     targets += [(zf, name) for name in K2_KERNELS]
+    targets = [(mod, name) for mod, name in targets if only is None or name in only]
     saved = [(mod, name, getattr(mod, name)) for mod, name in targets]
     for mod, name in targets:
         setattr(mod, name, plains[name] if name in plains else getattr(ops, name + "_plain"))
@@ -1026,6 +1137,10 @@ def espnet_path(name):
         f"({stats['frames']} frame steps); saturated lanes {stats['saturated_lanes']}")
     espnet_profile(model, buf, lens)
     espnet_reference_check(model, buf, lens, single)
+    # decode_batch alone: the second-to-last Graves call (decode_single is the last)
+    unswitched = (int(pops.ptot[-2]) / int(pops.frames[-2]),
+                  (t2 - t1) * 1e3 / pops.host[-2]["pops_issued"])
+    espnet_step_phase(model, buf, lens, name, unswitched)
     out = {k: counts[k] for k in ESPNET_ROWS if k != "fused_conv_module_layer"}
     out["fused_conv_module_layer"] = espnet_xla_config(buf[:1], lens[:1])
     return out
@@ -1149,6 +1264,331 @@ def espnet_xla_config(buf, lens):
     return counts["fused_conv_module_layer"]
 
 
+# --- the beam decoders' step kernels (rows 12-13) ---------------------------
+
+
+def _same(a, b):
+    """Equal decode results: nests of arrays, tensors and result dataclasses."""
+    import dataclasses
+
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(_same(x, y) for x, y in zip(a, b))
+    if isinstance(a, np.ndarray):
+        return np.array_equal(a, b)
+    if dataclasses.is_dataclass(a):
+        return dataclasses.asdict(a) == dataclasses.asdict(b)
+    return a == b
+
+
+@contextlib.contextmanager
+def recorded(kind, trace):
+    """Append the search's state to ``trace`` after every ALSD step
+    (``kind="alsd"``: each beam slot's score, tokens, count and frame, and
+    the best final's key, tokens and count) or every Graves frame
+    (``"graves"``: each kept hypothesis's score, token count and last
+    token)."""
+    from reazonspeech_tpu_torch.decoding import rnnt_beam as rb
+    from reazonspeech_tpu_torch.decoding import transducer_graves as tg
+
+    if kind == "alsd":
+        make = rb._make_body
+
+        def recording(*args, **kwargs):
+            body = make(*args, **kwargs)
+
+            def step(s):
+                s = body(s)
+                trace.append(tuple(x.clone() for x in (
+                    s.scores, s.tokens, s.counts, s.time_idx, s.fin_key, s.fin_tokens,
+                    s.fin_count)))
+                return s
+
+            return step
+
+        rb._make_body = recording
+        restore = lambda: setattr(rb, "_make_body", make)  # noqa: E731
+    else:
+        run = tg._Frame.run
+
+        def recording(frame, waits):
+            issued = run(frame, waits)
+            at = (frame.bi[:, None], frame.knode)
+            trace.append((frame.ks.clone(), frame.a["cnt"][at].clone(),
+                          frame.a["last"][at].clone()))
+            return issued
+
+        tg._Frame.run = recording
+        restore = lambda: setattr(tg._Frame, "run", run)  # noqa: E731
+    try:
+        yield trace
+    finally:
+        restore()
+
+
+def first_divergence(kind, rec_k, rec_t):
+    """(step, lane, slot, fp32 score gap) at the first ALSD step or Graves
+    frame where the two recorded searches hold different hypotheses: the gap
+    between the scores of the two candidates that hold that slot (slot -1:
+    the best final); None where every recorded step agrees."""
+    for i, (a, b) in enumerate(zip(rec_k, rec_t)):
+        live = (a[0] > -1e25) | (b[0] > -1e25)
+        if kind == "alsd":
+            differ = ((a[1] != b[1]).any(-1) | (a[2] != b[2]) | (a[3] != b[3])) & live
+        else:
+            differ = ((a[1] != b[1]) | (a[2] != b[2])) & live
+        if differ.any():
+            lane, slot = (int(x) for x in differ.nonzero()[0])
+            return i, lane, slot, abs(float(a[0][lane, slot]) - float(b[0][lane, slot]))
+        if kind == "alsd":
+            fin = (a[5] != b[5]).any(-1) | (a[6] != b[6])
+            if fin.any():
+                lane = int(fin.nonzero()[0, 0])
+                return i, lane, -1, abs(float(a[4][lane]) - float(b[4][lane]))
+    return None
+
+
+def same_decode(what, got, want, rerun, kind):
+    """The kernel run's tokens (``got``) must equal the twin run's
+    (``want``). Where they differ, ``rerun(twins)`` repeats both runs
+    recording the search; the first differing step and the fp32 score gap
+    of the two candidates there are printed, and the check passes only when
+    that gap is under 1e-4: a near-tie that the kernel's and the twin's fp32
+    summation orders break differently."""
+    if _same(got, want):
+        log(f"{what}: tokens with the step kernels == with their plain twins")
+        return
+    rec_k, rec_t = [], []
+    with recorded(kind, rec_k):
+        rerun(False)
+    with recorded(kind, rec_t):
+        rerun(True)
+    div = first_divergence(kind, rec_k, rec_t)
+    check(div is not None, f"{what}: the tokens differ but no recorded step does")
+    step, lane, slot, gap = div
+    log(f"{what}: tokens differ from the twins'; first differing "
+        f"{'step' if kind == 'alsd' else 'frame'} {step}, lane {lane}, slot {slot}: fp32 score "
+        f"gap {gap:.3g} between the two candidates (tol 1e-4)")
+    check(gap < 1e-4, f"{what}: the tokens differ beyond an fp32 near-tie (gap {gap})")
+
+
+def alsd_step_launches(params, rnnt_cfg, cfg, enc, el, steps=8):
+    """(device launches, host ms) per ALSD alignment step: torch.profiler
+    over ``steps`` steps of the body from the initial state (after as many
+    unprofiled), and the host clock over as many more ending in a sync."""
+    import torch
+
+    from reazonspeech_tpu_torch.decoding import rnnt_beam as rb
+    from reazonspeech_tpu_torch.models.rnnt import joint_precompute_enc
+
+    pp, jp = params["predictor"], params["joint"]
+    el = el.to(torch.int32)
+    u_max = torch.floor(cfg.alsd_max_target_len * el.float()).to(torch.int32)
+    body = rb._make_body(pp, jp, joint_precompute_enc(jp, enc, rnnt_cfg), el, u_max, rnnt_cfg,
+                         cfg)
+    state = [rb._init_state(pp, enc.shape[0], rnnt_cfg, cfg,
+                            cfg.max_tokens or rb.alsd_step_bound(enc.shape[1], cfg), enc.device)]
+
+    def run():
+        for _ in range(steps):
+            state[0] = body(state[0])
+
+    items = device_items(run, 1)
+    check(items, "ALSD: the profiler recorded no device kernel in the steps")
+    t0 = time.perf_counter()
+    run()
+    torch.cuda.synchronize()
+    return sum(c for _, _, c in items) / steps, (time.perf_counter() - t0) * 1e3 / steps
+
+
+def graves_pop_launches(params, rnnt_cfg, cfg, enc, el, frames=4):
+    """Device launches per issued pop: torch.profiler over a Graves decode
+    of the first ``frames`` encoder frames, over the pops it issued (the
+    encoder projection and the per-frame compaction included)."""
+    from reazonspeech_tpu_torch.decoding.transducer_graves import graves_beam_decode_stats
+
+    head = (enc[:, :frames].contiguous(), el.clamp(max=frames))
+    issued = []
+
+    def run():
+        issued.append(graves_beam_decode_stats(params["predictor"], params["joint"], *head,
+                                               rnnt_cfg, cfg)[-1]["pops_issued"])
+
+    items = device_items(run, 1)
+    check(items, "Graves: the profiler recorded no device kernel in the pops")
+    return sum(c for _, _, c in items) / issued[-1]
+
+
+def nemo_step_path(name):
+    """nemo ALSD beam 4 with both step kernels (joint_impl and
+    lstm_impl="pallas"; pred_hidden 640 passes the LSTM kernel's guard) at
+    the xlarge width and depth: transcribe_batch of 4 x 30 s with the
+    kernels and with their plain twins (tokens equal under the near-tie
+    rule), and the device launches and host ms per ALSD step with and
+    without the switches on that batch's encoder output."""
+    from dataclasses import replace
+
+    import torch
+
+    from reazonspeech_tpu_torch import ops
+    from reazonspeech_tpu_torch.decoding.rnnt_beam import BeamDecodeConfig
+    from reazonspeech_tpu_torch.frontend.features import log_mel_spectrogram
+    from reazonspeech_tpu_torch.models.fastconformer import fastconformer_encode
+    from reazonspeech_tpu_torch.nemo.asr import audio_from_numpy, load_model, transcribe_batch
+
+    cfg = BeamDecodeConfig(beam_size=4, topk_impl="pallas", joint_impl="pallas",
+                           lstm_impl="pallas")
+    model = load_model(device="cuda", checkpoint="random", decode_cfg=cfg)
+    enc_cfg, rnnt_cfg = model.enc_cfg, model.rnnt_cfg
+    check((enc_cfg.d_model, enc_cfg.num_layers, enc_cfg.lnd_impl) == (1024, 24, "pallas"),
+          "nemo step kernels: not the xlarge serving configuration")
+    check(rnnt_cfg.predictor_kind == "lstm" and rnnt_cfg.pred_hidden % 128 == 0,
+          "nemo step kernels: the LSTM kernel's guard refuses the predictor")
+    batch = [audio_from_numpy(speech_like(30.0, seed=i), SR) for i in range(4)]
+    transcribe_batch(model, batch[:1])  # warm-up
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = transcribe_batch(model, batch)
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    log(f"nemo ALSD with joint_impl/lstm_impl=pallas: launch counts {counts}")
+    check(all(counts[k] > 0 for k in STEP_KERNELS), f"a step kernel was not launched: {counts}")
+    check(counts["topm_logsoftmax"] == 0, "nemo: the top-m kernel ran beside joint_topm")
+    check_results(res, [30.0] * 4)
+    log(f"nemo transcribe_batch 4 x 30 s with the step kernels: {wall:.3f} s wall, "
+        f"{120.0 / wall:.2f} audio-s/s on {name}; subwords {[len(r.subwords) for r in res]}")
+
+    def rerun(twins):
+        with plain_twins(STEP_KERNELS) if twins else contextlib.nullcontext():
+            t0 = time.perf_counter()
+            out = transcribe_batch(model, batch)
+            torch.cuda.synchronize()
+        log(f"nemo transcribe_batch 4 x 30 s, step kernels {'twins' if twins else 'kernels'}: "
+            f"{time.perf_counter() - t0:.3f} s wall")
+        return out
+
+    same_decode("nemo ALSD beam 4, 4 x 30 s", res, rerun(True), rerun, "alsd")
+
+    buf = np.zeros((4, 32 * SR), np.float32)
+    for i, a in enumerate(batch):
+        buf[i, :len(a.waveform)] = a.waveform
+    with torch.inference_mode():
+        wav = torch.from_numpy(buf).to(model.device)
+        lens = torch.full((4,), 30 * SR, dtype=torch.int32, device=model.device)
+        feats, fl = log_mel_spectrogram(wav, lens, model.fe_cfg)
+        enc, el = fastconformer_encode(model.params["encoder"], feats, fl, enc_cfg)
+        for label, c in (("topk_impl=pallas only (the serving default)",
+                          replace(cfg, joint_impl="xla", lstm_impl="xla")),
+                         ("joint_impl/lstm_impl=pallas", cfg)):
+            n, host_ms = alsd_step_launches(model.params, rnnt_cfg, c, enc, el)
+            log(f"nemo ALSD step, R=16, {label}: {n:.1f} device launches a step, "
+                f"{host_ms:.3f} host ms a step")
+    del model
+    return {k: counts[k] for k in STEP_KERNELS}
+
+
+def espnet_step_phase(model, buf, lens, name, unswitched):
+    """espnet Graves beam 20 with both step kernels (pred_hidden 256 passes
+    the LSTM kernel's guard) on the four 20 s windows (B=4, T=549, the
+    +12 blank bias kept): decode_batch with the kernels and with their
+    plain twins (tokens equal under the near-tie rule), pops per lane-frame
+    and ms per issued pop beside ``unswitched`` (the same figures of the
+    serving configuration's decode_batch), and device launches per issued
+    pop with and without the switches."""
+    from dataclasses import replace
+
+    import torch
+
+    from reazonspeech_tpu_torch import ops
+    from reazonspeech_tpu_torch.espnet.asr import model as espnet_model
+
+    cfg = replace(model.decode_cfg, joint_impl="pallas", lstm_impl="pallas")
+    switched = replace(model, decode_cfg=cfg)
+    ops.reset_launch_counts()
+    with PopCounter(espnet_model) as pops:
+        t0 = time.perf_counter()
+        got = switched.decode_batch(buf, lens)
+        wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    log(f"espnet Graves with joint_impl/lstm_impl=pallas: launch counts {counts}")
+    check(all(counts[k] > 0 for k in STEP_KERNELS), f"a step kernel was not launched: {counts}")
+    check(counts["topm_logsoftmax"] == 0, "espnet: the top-m kernel ran beside joint_topm")
+    stats = pops.summary()
+    issued = stats["issued_per_frame"] * stats["frames"]
+    log(f"espnet decode_batch 4 x 20 s windows with the step kernels: {wall:.3f} s wall, "
+        f"{80.0 / wall:.2f} audio-s/s on {name}; {stats['pops_per_lane_frame']:.2f} pops per "
+        f"lane-frame, {wall * 1e3 / issued:.3f} ms per issued pop; serving configuration "
+        f"(topk_impl=pallas only): {unswitched[0]:.2f} pops per lane-frame, "
+        f"{unswitched[1]:.3f} ms per issued pop; tokens {got[2].tolist()}")
+
+    def rerun(twins):
+        with plain_twins(STEP_KERNELS) if twins else contextlib.nullcontext():
+            t0 = time.perf_counter()
+            out = switched.decode_batch(buf, lens)
+        log(f"espnet decode_batch, step kernels {'twins' if twins else 'kernels'}: "
+            f"{time.perf_counter() - t0:.3f} s wall")
+        return out
+
+    same_decode("espnet Graves beam 20, 4 x 20 s windows", got, rerun(True), rerun, "graves")
+    with torch.inference_mode():
+        enc, el = _espnet_encode(model, buf, lens)
+        for label, c in (("topk_impl=pallas only (the serving default)", model.decode_cfg),
+                         ("joint_impl/lstm_impl=pallas", cfg)):
+            n = graves_pop_launches(model.params, model.rnnt_cfg, c, enc, el)
+            log(f"espnet Graves pop, B=4, {label}: {n:.1f} device launches per issued pop "
+                f"(a 4-frame decode, compaction included)")
+    return {k: counts[k] for k in STEP_KERNELS}
+
+
+def k2_beam_path(name):
+    """k2 load_model_container(decoding="beam") at ZipformerConfig.large():
+    ALSD beam 4 over the stateless predictor with joint_impl="pallas"
+    (lstm_impl has no LSTM to act on), transcribe_batch of 4 x 30 s with the
+    joint kernel and with its plain twin (tokens equal under the near-tie
+    rule)."""
+    from dataclasses import replace
+
+    import torch
+
+    from reazonspeech_tpu_torch import ops
+    from reazonspeech_tpu_torch.decoding.rnnt_beam import BeamDecodeConfig
+    from reazonspeech_tpu_torch.k2 import asr
+
+    model = asr.model.load_model_container(device="cuda", checkpoint="random", decoding="beam")
+    large = asr.model.ZipformerConfig.large()
+    check((model.enc_cfg.num_layers, model.enc_cfg.encoder_dim) ==
+          (large.num_layers, large.encoder_dim), "k2 beam: not the large width and depth")
+    check(model.decode_cfg == BeamDecodeConfig(beam_size=4), "k2 beam: not ALSD beam 4")
+    model = replace(model, decode_cfg=replace(model.decode_cfg, joint_impl="pallas"))
+    batch = [asr.audio_from_numpy(speech_like(30.0, seed=30 + i), SR) for i in range(4)]
+    asr.transcribe_batch(model, batch[:1])  # warm-up
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = asr.transcribe_batch(model, batch)
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    log(f"k2 ALSD beam 4 with joint_impl=pallas: launch counts {counts}")
+    check(counts["joint_topm"] > 0, f"k2 beam: joint_topm was not launched: {counts}")
+    check(counts["topm_logsoftmax"] == 0 and counts["lstm_cell_step"] == 0,
+          "k2 beam: a kernel other than joint_topm ran in the decode")
+    check_k2_results(res, [30.0] * 4)
+    log(f"k2 transcribe_batch 4 x 30 s, ALSD beam 4 with joint_topm: {wall:.3f} s wall, "
+        f"{120.0 / wall:.2f} audio-s/s on {name}; subwords {[len(r.subwords) for r in res]}")
+
+    def rerun(twins):
+        with plain_twins(STEP_KERNELS) if twins else contextlib.nullcontext():
+            t0 = time.perf_counter()
+            out = asr.transcribe_batch(model, batch)
+            torch.cuda.synchronize()
+        log(f"k2 transcribe_batch 4 x 30 s, ALSD beam 4, joint "
+            f"{'twin' if twins else 'kernel'}: {time.perf_counter() - t0:.3f} s wall")
+        return out
+
+    same_decode("k2 ALSD beam 4, 4 x 30 s", res, rerun(True), rerun, "alsd")
+    return counts["joint_topm"]
+
+
 def main():
     import torch
 
@@ -1175,7 +1615,9 @@ def main():
 
     rows = kernel_checks(dev)
     counts = main_path(dev, f"{smi}")
+    counts.update(nemo_step_path(f"{smi}"))  # rows 12-13 take their launches from here
     counts.update(k2_path(f"{smi}"))
+    k2_beam_path(f"{smi}")
     counts.update(espnet_path(f"{smi}"))
     for row in rows:
         row["launches"] = counts[row["name"]]

@@ -34,53 +34,6 @@ constexpr int NT = 256;
 constexpr int NW = NT / 32;
 constexpr float EXCLUDED = -1.0e30f;
 
-__device__ __forceinline__ bool better(float v, int i, float bv, int bi) {
-  return v > bv || (v == bv && i < bi);
-}
-
-// block-wide reductions; every thread returns the same value. The trailing
-// barrier lets the caller reuse the scratch right away.
-__device__ __forceinline__ float block_max(float v, float* s_f) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
-  if (threadIdx.x % 32 == 0) s_f[threadIdx.x / 32] = v;
-  __syncthreads();
-  float r = s_f[0];
-#pragma unroll
-  for (int w = 1; w < NW; ++w) r = fmaxf(r, s_f[w]);
-  __syncthreads();
-  return r;
-}
-
-__device__ __forceinline__ float block_sum(float v, float* s_f) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-  if (threadIdx.x % 32 == 0) s_f[threadIdx.x / 32] = v;
-  __syncthreads();
-  float r = s_f[0];
-#pragma unroll
-  for (int w = 1; w < NW; ++w) r += s_f[w];
-  __syncthreads();
-  return r;
-}
-
-__device__ __forceinline__ void block_argmax(float& bv, int& bi, float* s_f, int* s_i) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    const float ov = __shfl_xor_sync(0xffffffffu, bv, off);
-    const int oi = __shfl_xor_sync(0xffffffffu, bi, off);
-    if (better(ov, oi, bv, bi)) { bv = ov; bi = oi; }
-  }
-  if (threadIdx.x % 32 == 0) { s_f[threadIdx.x / 32] = bv; s_i[threadIdx.x / 32] = bi; }
-  __syncthreads();
-  bv = s_f[0];
-  bi = s_i[0];
-#pragma unroll
-  for (int w = 1; w < NW; ++w)
-    if (better(s_f[w], s_i[w], bv, bi)) { bv = s_f[w]; bi = s_i[w]; }
-  __syncthreads();
-}
-
 template <typename T>
 __global__ void __launch_bounds__(NT)
 topm_kernel(const T* __restrict__ logits, float* __restrict__ lp_blank,
@@ -97,10 +50,10 @@ topm_kernel(const T* __restrict__ logits, float* __restrict__ lp_blank,
     s_row[c] = v;
     mx = fmaxf(mx, v);
   }
-  mx = block_max(mx, s_f);  // its barriers also publish s_row
+  mx = rs::block_max<NT>(mx, s_f);  // its barriers also publish s_row
   float sum = 0.0f;
   for (int c = threadIdx.x; c < V; c += NT) sum += expf(s_row[c] - mx);
-  const float lse = mx + logf(block_sum(sum, s_f));
+  const float lse = mx + logf(rs::block_sum<NT>(sum, s_f));
   if (threadIdx.x == 0) lp_blank[row] = s_row[blank] - lse;
 
   int picked[MAX_M];
@@ -111,9 +64,9 @@ topm_kernel(const T* __restrict__ logits, float* __restrict__ lp_blank,
       bool excluded = c == blank;
       for (int p = 0; p < i; ++p) excluded |= c == picked[p];
       const float v = excluded ? EXCLUDED : s_row[c];
-      if (better(v, c, bv, bi)) { bv = v; bi = c; }
+      if (rs::better(v, c, bv, bi)) { bv = v; bi = c; }
     }
-    block_argmax(bv, bi, s_f, s_i);
+    rs::block_argmax<NT>(bv, bi, s_f, s_i);
     picked[i] = bi;
     if (threadIdx.x == 0) {
       top_lp[size_t(row) * m + i] = bv - lse;

@@ -94,12 +94,6 @@ __device__ __forceinline__ void store_tile(float* c, FragC (&acc)[2][2], int wm,
 
 }  // namespace gemm
 
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
 // LayerNorm statistics of one row, computed by one whole warp: x(i) gives
 // element i in fp32. Returns (mean, rsqrt(var + eps)), var the centred
 // second moment, as every lane's value.

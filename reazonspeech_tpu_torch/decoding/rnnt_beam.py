@@ -21,9 +21,20 @@ sync. Elements outside their budget are frozen by masks, so extra steps are
 no-ops: the host checks for termination once every ``CHECK_EVERY`` steps
 (one sync each), bounded by ``alsd_step_bound`` of the padded length.
 
-The per-step log-softmax + blank split + top-m runs in ``ops/beam_topk``
-when ``topk_impl="pallas"`` (the kernel on CUDA tensors), else in its plain
-twin. ``joint_impl``/``lstm_impl`` kernels are not ported yet.
+The per-step joint tail runs, as in the reference:
+
+- ``joint_impl="pallas"``: the joint and the top-m in one op
+  (``ops/beam_topk.joint_topm``, fp32; ``topk_impl`` is then unused);
+- else the joint, then the log-softmax + blank split + top-m in
+  ``ops/beam_topk.topm_logsoftmax`` when ``topk_impl="pallas"``, else in its
+  plain twin.
+
+``lstm_impl="pallas"`` steps each predictor LSTM layer with
+``ops/lstm_step.lstm_cell_step`` in fp32, for an LSTM predictor with
+``pred_hidden % 128 == 0`` (else it is ignored, as in the reference). The ops
+launch their kernels on CUDA tensors and run their plain twins on CPU ones.
+The predictor state is an LSTM ``(h, c)`` pair or, for a stateless (k2)
+predictor, its token context.
 """
 
 from dataclasses import dataclass
@@ -32,9 +43,11 @@ from typing import NamedTuple
 import torch
 
 from ..models.rnnt import (
-    RNNTConfig, joint_precompute_enc, joint_step_from_enc_proj, predictor_step,
+    RNNTConfig, _embed_tokens, joint_precompute_enc, joint_step_from_enc_proj, predictor_step,
+    predictor_zero_state,
 )
-from ..ops.beam_topk import topm_logsoftmax, topm_logsoftmax_plain
+from ..ops.beam_topk import joint_topm, topm_logsoftmax, topm_logsoftmax_plain
+from ..ops.lstm_step import lstm_cell_step
 
 __all__ = ["BeamDecodeConfig", "rnnt_beam_decode", "alsd_step_bound"]
 
@@ -53,8 +66,8 @@ class BeamDecodeConfig:
     recombine_dedup: bool = False
     max_tokens: int = 0  # emission buffer; 0 -> T + u_max
     topk_impl: str = "xla"  # "pallas": the port's top-m kernel
-    joint_impl: str = "xla"  # fused joint kernel: not ported yet
-    lstm_impl: str = "xla"  # fused LSTM-cell kernel: not ported yet
+    joint_impl: str = "xla"  # "pallas": the port's joint + top-m kernel
+    lstm_impl: str = "xla"  # "pallas": the port's LSTM-cell kernel (pred_hidden % 128 == 0)
     unroll: int = 1  # exact in the reference; the eager loop needs no unrolling
 
 
@@ -66,8 +79,7 @@ class ALSDBeamState(NamedTuple):
     frames: torch.Tensor  # [B, K, U] int32
     last_tok: torch.Tensor  # [B, K] int32
     pred_out: torch.Tensor  # [B, K, H] fp32
-    pred_h: torch.Tensor  # [B, K, L, H] fp32
-    pred_c: torch.Tensor  # [B, K, L, H] fp32
+    pred_state: object  # LSTM: (h, c), each [B, K, L, H] fp32; stateless: [B, K, ctx-1] int32
     step: torch.Tensor  # [B] int32 alignment-step clock
     fin_key: torch.Tensor  # [B] fp32 best final in the selection metric
     fin_raw: torch.Tensor  # [B] fp32 its raw score
@@ -83,10 +95,9 @@ def alsd_step_bound(lane_len: int, cfg: BeamDecodeConfig) -> int:
 
 
 def _check_supported(cfg: BeamDecodeConfig):
-    if cfg.joint_impl != "xla" or cfg.lstm_impl != "xla":
-        raise ValueError("joint_impl/lstm_impl kernels are not ported yet")
-    if cfg.topk_impl not in ("xla", "pallas"):
-        raise ValueError(f"unknown topk_impl {cfg.topk_impl!r}")
+    for name in ("topk_impl", "joint_impl", "lstm_impl"):
+        if getattr(cfg, name) not in ("xla", "pallas"):
+            raise ValueError(f"unknown {name} {getattr(cfg, name)!r}")
 
 
 def _norm_key(cfg, score, counts):
@@ -95,26 +106,92 @@ def _norm_key(cfg, score, counts):
     return score / (counts.to(torch.float32) + 1.0)
 
 
-def _pred_step(pred_params, rnnt_cfg, tokens, h, c):
-    """predictor_step on [B, K] token rows with beam-layout state [B, K, L, H]."""
-    b, k, n_layers, hid = h.shape
-    flat = lambda s: s.reshape(b * k, n_layers, hid).transpose(0, 1)  # noqa: E731
-    out, (h_new, c_new) = predictor_step(
-        pred_params, tokens.reshape(b * k), (flat(h), flat(c)), rnnt_cfg)
-    unflat = lambda s: s.transpose(0, 1).reshape(b, k, n_layers, hid)  # noqa: E731
-    return out.reshape(b, k, hid), unflat(h_new), unflat(c_new)
+def lstm_kernel_step(pred_params, rnnt_cfg: RNNTConfig, lstm_impl: str):
+    """The predictor step through the LSTM cell kernel where ``lstm_impl``
+    is "pallas" and the predictor an LSTM with ``pred_hidden % 128 == 0``
+    (the reference's guard), else None. The step maps tokens [R] and the
+    layers' states (sequences of [R, H]) to (output [R, H] fp32, [h'], [c'])."""
+    if not (lstm_impl == "pallas" and rnnt_cfg.predictor_kind == "lstm"
+            and rnnt_cfg.pred_hidden % 128 == 0):
+        return None
+    layers = [(p["w_ih"], p["w_hh"], p["b_ih"] + p["b_hh"]) for p in pred_params["lstm"]]
+
+    def step(tokens, hs, cs):
+        # fp32 between layers, without predictor_step's casts to the compute
+        # dtype: the reference's kernel branch
+        x = _embed_tokens(pred_params, tokens, rnnt_cfg).to(torch.float32)
+        h_new, c_new = [], []
+        for (w_ih, w_hh, bias), h, c in zip(layers, hs, cs):
+            x, c_next = lstm_cell_step(w_ih, w_hh, bias, x, h.contiguous(), c.contiguous(),
+                                       compute_dtype="float32")
+            h_new.append(x)
+            c_new.append(c_next)
+        return x, h_new, c_new
+
+    return step
+
+
+def joint_tail(joint_params, rnnt_cfg: RNNTConfig, cfg, m):
+    """The beam decoders' per-step joint tail, chosen by ``cfg.joint_impl``
+    and ``cfg.topk_impl``: (enc rows [R, J], predictor rows [R, H]) ->
+    (lp_blank [R], top_lp [R, m], top_tok [R, m])."""
+    blank = rnnt_cfg.blank_id
+    if cfg.joint_impl == "pallas":
+        pred, out = joint_params["pred"], joint_params["out"]
+        return lambda enc_rows, dec_rows: joint_topm(
+            pred["w"], pred["b"], out["w"], out["b"], enc_rows, dec_rows, m, blank,
+            activation=rnnt_cfg.joint_activation, compute_dtype="float32")
+    topm = topm_logsoftmax if cfg.topk_impl == "pallas" else topm_logsoftmax_plain
+    return lambda enc_rows, dec_rows: topm(
+        joint_step_from_enc_proj(joint_params, enc_rows, dec_rows, rnnt_cfg), m, blank)
+
+
+def _make_pred_step(pred_params, rnnt_cfg: RNNTConfig, cfg: BeamDecodeConfig):
+    """predictor_step over flat [R] token rows, through the LSTM cell kernel
+    where :func:`lstm_kernel_step` applies; the state stays ``(h, c)``
+    [L, R, H] (or the stateless context [R, ctx-1]) either way."""
+    fused = lstm_kernel_step(pred_params, rnnt_cfg, cfg.lstm_impl)
+    if fused is None:
+        return lambda tokens, state: predictor_step(pred_params, tokens, state, rnnt_cfg)
+
+    def pred_step(tokens, state):
+        out, hs, cs = fused(tokens, *state)
+        return out, (torch.stack(hs), torch.stack(cs))
+
+    return pred_step
+
+
+def _to_rows(state, rnnt_cfg):
+    """Beam-layout predictor state [B, K, ...] -> the predictor's flat form."""
+    if rnnt_cfg.predictor_kind == "stateless":
+        return state.flatten(0, 1)
+    return tuple(s.flatten(0, 1).transpose(0, 1) for s in state)
+
+
+def _to_beams(state, rnnt_cfg, b, k):
+    """The predictor's flat state -> beam layout [B, K, ...]."""
+    if rnnt_cfg.predictor_kind == "stateless":
+        return state.reshape(b, k, -1)
+    return tuple(s.transpose(0, 1).reshape(b, k, *s.shape[::2]) for s in state)
+
+
+def _map_state(fn, *states):
+    """fn over the tensors of one or more predictor states of the same kind."""
+    if isinstance(states[0], tuple):
+        return tuple(fn(*parts) for parts in zip(*states))
+    return fn(*states)
 
 
 def _init_state(pred_params, b, rnnt_cfg: RNNTConfig, cfg: BeamDecodeConfig, u_buf,
                 device):
     """Slot 0 holds the initial hypothesis (blank consumed by one predictor
-    step); the other slots are dead."""
+    step, through the same branch as the loop's); the other slots are dead."""
     k = cfg.beam_size
     blank = rnnt_cfg.blank_id
     i32 = dict(dtype=torch.int32, device=device)
-    zero = torch.zeros((b, k, rnnt_cfg.pred_rnn_layers, rnnt_cfg.pred_hidden), device=device)
-    last_tok = torch.full((b, k), blank, **i32)
-    pred_out, pred_h, pred_c = _pred_step(pred_params, rnnt_cfg, last_tok, zero, zero)
+    pred_step = _make_pred_step(pred_params, rnnt_cfg, cfg)
+    pred_out, pred_state = pred_step(torch.full((b * k,), blank, **i32),
+                                     predictor_zero_state(b * k, rnnt_cfg, device))
     scores = torch.full((b, k), _DEAD, dtype=torch.float32, device=device)
     scores[:, 0] = 0.0
     return ALSDBeamState(
@@ -123,8 +200,9 @@ def _init_state(pred_params, b, rnnt_cfg: RNNTConfig, cfg: BeamDecodeConfig, u_b
         counts=torch.zeros((b, k), **i32),
         tokens=torch.full((b, k, u_buf), blank, **i32),
         frames=torch.zeros((b, k, u_buf), **i32),
-        last_tok=last_tok,
-        pred_out=pred_out, pred_h=pred_h, pred_c=pred_c,
+        last_tok=torch.full((b, k), blank, **i32),
+        pred_out=pred_out.reshape(b, k, -1),
+        pred_state=_to_beams(pred_state, rnnt_cfg, b, k),
         step=torch.zeros((b,), **i32),
         fin_key=torch.full((b,), _DEAD, dtype=torch.float32, device=device),
         fin_raw=torch.full((b,), _DEAD, dtype=torch.float32, device=device),
@@ -150,8 +228,9 @@ def _make_body(pred_params, joint_params, enc_proj, enc_lengths, u_max_el,
     dev = enc_proj.device
     rows = torch.arange(b, device=dev)[:, None]
     jidx = torch.arange(k, device=dev)
-    topm = topm_logsoftmax if cfg.topk_impl == "pallas" else topm_logsoftmax_plain
     blank = rnnt_cfg.blank_id
+    pred_step = _make_pred_step(pred_params, rnnt_cfg, cfg)
+    joint_topm_step = joint_tail(joint_params, rnnt_cfg, cfg, m)
     last_frame = enc_lengths[:, None] - 1
 
     def body(s: ALSDBeamState) -> ALSDBeamState:
@@ -160,9 +239,8 @@ def _make_body(pred_params, joint_params, enc_proj, enc_lengths, u_max_el,
         alive = s.scores > _ALIVE  # [B, K]
 
         enc_frames = enc_proj[rows, torch.clamp(s.time_idx, max=t - 1)]  # [B, K, J]
-        logits = joint_step_from_enc_proj(
-            joint_params, enc_frames.reshape(bk, -1), s.pred_out.reshape(bk, -1), rnnt_cfg)
-        lp_blank, top_lp, top_tok = topm(logits, m, blank)
+        lp_blank, top_lp, top_tok = joint_topm_step(enc_frames.reshape(bk, -1),
+                                                    s.pred_out.reshape(bk, -1))
         lp_blank = lp_blank.reshape(b, k)
         top_lp = top_lp.reshape(b, k, m)
         top_tok = top_tok.reshape(b, k, m)
@@ -195,9 +273,10 @@ def _make_body(pred_params, joint_params, enc_proj, enc_lengths, u_max_el,
         src = flat_idx // (m + 1)
         cand = flat_idx % (m + 1)  # 0 = blank, >= 1 = label index
 
-        n_time, n_counts, n_tokens, n_frames, n_last, n_pred_out, n_h, n_c, n_top = (
+        n_time, n_counts, n_tokens, n_frames, n_last, n_pred_out, n_top = (
             x[rows, src] for x in (s.time_idx, s.counts, s.tokens, s.frames, s.last_tok,
-                                   s.pred_out, s.pred_h, s.pred_c, top_tok))
+                                   s.pred_out, top_tok))
+        n_state = _map_state(lambda x: x[rows, src], s.pred_state)
         new_tok = n_top.gather(-1, torch.clamp(cand - 1, min=0)[..., None])[..., 0]
 
         sel_alive = new_scores > _ALIVE
@@ -233,10 +312,11 @@ def _make_body(pred_params, joint_params, enc_proj, enc_lengths, u_max_el,
 
         # --- prediction network advances where a label was emitted --------
         stepped_tok = torch.where(emit, new_tok, n_last)
-        out, h_new, c_new = _pred_step(pred_params, rnnt_cfg, stepped_tok, n_h, n_c)
-        n_pred_out = torch.where(emit[..., None], out, n_pred_out)
-        n_h = torch.where(emit[..., None, None], h_new, n_h)
-        n_c = torch.where(emit[..., None, None], c_new, n_c)
+        out, stepped = pred_step(stepped_tok.reshape(bk), _to_rows(n_state, rnnt_cfg))
+        n_pred_out = torch.where(emit[..., None], out.reshape(b, k, -1), n_pred_out)
+        n_state = _map_state(
+            lambda new, old: torch.where(emit.reshape(b, k, *(1,) * (new.dim() - 2)), new, old),
+            _to_beams(stepped, rnnt_cfg, b, k), n_state)
 
         # --- freeze elements outside their budget -------------------------
         def keep(new, old):
@@ -246,8 +326,8 @@ def _make_body(pred_params, joint_params, enc_proj, enc_lengths, u_max_el,
             scores=keep(new_scores, s.scores), time_idx=keep(n_time, s.time_idx),
             counts=keep(n_counts, s.counts), tokens=keep(n_tokens, s.tokens),
             frames=keep(n_frames, s.frames), last_tok=keep(stepped_tok, s.last_tok),
-            pred_out=keep(n_pred_out, s.pred_out), pred_h=keep(n_h, s.pred_h),
-            pred_c=keep(n_c, s.pred_c), step=s.step + 1,
+            pred_out=keep(n_pred_out, s.pred_out),
+            pred_state=_map_state(keep, n_state, s.pred_state), step=s.step + 1,
             fin_key=fin_key, fin_raw=fin_raw, fin_tokens=fin_tokens,
             fin_frames=fin_frames, fin_count=fin_count, fin_any=fin_any)
 

@@ -33,10 +33,19 @@ behind); extra pops issued meanwhile are masked no-ops. No pop reads a
 device value on the host (``.item()``). On CPU tensors the flag is read
 after each pop.
 
-The per-pop log-softmax + blank split + top-m runs in ``ops/beam_topk``
-when ``topk_impl="pallas"`` (the kernel on CUDA tensors), else in its plain
-twin. ``multipop``, ``unroll``, ``joint_impl`` and ``lstm_impl`` other than
-their defaults, and the segmented API, are not ported (ROADMAP).
+The per-pop joint tail and the predictor step take ALSD's branches
+(``rnnt_beam.joint_tail`` and ``rnnt_beam.lstm_kernel_step``): with
+``joint_impl="pallas"`` the joint and the top-m in one op
+(``ops/beam_topk.joint_topm``, fp32), else the joint, then the log-softmax
++ blank split + top-m in ``ops/beam_topk.topm_logsoftmax`` when
+``topk_impl="pallas"`` or in its plain twin; with ``lstm_impl="pallas"`` and
+``pred_hidden % 128 == 0`` each predictor LSTM layer in
+``ops/lstm_step.lstm_cell_step`` (fp32; else it is ignored, as in the
+reference). The ops launch their kernels on CUDA tensors and run their plain
+twins on CPU ones. ``unroll`` is accepted
+and changes nothing (the reference's unrolling is exact, and the eager loop
+has nothing to unroll). ``multipop`` other than 1, and the segmented API,
+are not ported (ROADMAP).
 """
 
 import collections
@@ -44,8 +53,8 @@ from dataclasses import dataclass
 
 import torch
 
-from ..models.rnnt import RNNTConfig, joint_precompute_enc, joint_step_from_enc_proj, predictor_step
-from ..ops.beam_topk import topm_logsoftmax, topm_logsoftmax_plain
+from ..models.rnnt import RNNTConfig, joint_precompute_enc, predictor_step
+from .rnnt_beam import joint_tail, lstm_kernel_step
 
 __all__ = ["GravesBeamConfig", "graves_beam_decode", "graves_beam_decode_stats"]
 
@@ -64,9 +73,9 @@ class GravesBeamConfig:
     kept_capacity: int = 0  # 0 -> beam + 12
     max_tokens: int = 0  # 0 -> T
     topk_impl: str = "xla"  # "pallas": the port's top-m kernel
-    joint_impl: str = "xla"  # fused joint + top-m kernel: not ported yet
-    lstm_impl: str = "xla"  # fused LSTM-cell kernel: not ported yet
-    unroll: int = 1
+    joint_impl: str = "xla"  # "pallas": the port's joint + top-m kernel
+    lstm_impl: str = "xla"  # "pallas": the port's LSTM-cell kernel (pred_hidden % 128 == 0)
+    unroll: int = 1  # exact in the reference; the eager loop needs no unrolling
     multipop: int = 1
     multipop_arena_factor: float = 1.5
 
@@ -76,14 +85,13 @@ def _check_supported(rnnt_cfg: RNNTConfig, cfg: GravesBeamConfig):
         raise NotImplementedError("graves beam search: LSTM predictors only")
     if not rnnt_cfg.blank_first:
         raise NotImplementedError("espnet convention: blank id 0")
-    for name, default in (("joint_impl", "xla"), ("lstm_impl", "xla"), ("multipop", 1),
-                          ("unroll", 1)):
-        if getattr(cfg, name) != default:
-            raise NotImplementedError(
-                f"GravesBeamConfig.{name}={getattr(cfg, name)!r} is not ported yet "
-                "(ROADMAP.md, queue 1 item 15: the opt-in knobs)")
-    if cfg.topk_impl not in ("xla", "pallas"):
-        raise ValueError(f"unknown topk_impl {cfg.topk_impl!r}")
+    if cfg.multipop != 1:
+        raise NotImplementedError(
+            f"GravesBeamConfig.multipop={cfg.multipop!r} is not ported yet "
+            "(ROADMAP.md, queue 1 item 15: the opt-in knobs)")
+    for name in ("topk_impl", "joint_impl", "lstm_impl"):
+        if getattr(cfg, name) not in ("xla", "pallas"):
+            raise ValueError(f"unknown {name} {getattr(cfg, name)!r}")
 
 
 def _dims(rnnt_cfg: RNNTConfig, cfg: GravesBeamConfig, t):
@@ -103,12 +111,11 @@ class _Frame:
     """One frame's pop state machine over the batch (the reference's
     ``pop_body``), on the node arenas of the whole decode."""
 
-    def __init__(self, arenas, cs, in_frame, enc_row, f, pred_params, joint_params,
-                 rnnt_cfg, topm, dims):
+    def __init__(self, arenas, cs, in_frame, enc_row, f, pred_step, joint_step, dims):
         self.a = arenas
         self.k, self.beam_k, self.p_max, self.kc, self.u_buf, _, c_pend = dims
-        self.pred_params, self.joint_params, self.rnnt_cfg = pred_params, joint_params, rnnt_cfg
-        self.topm, self.enc_row, self.f = topm, enc_row, f
+        self.pred_step, self.joint_step = pred_step, joint_step
+        self.enc_row, self.f = enc_row, f
         b, dev = cs.shape[0], cs.device
         self.c_pend = c_pend
         self.bi = torch.arange(b, device=dev)
@@ -143,9 +150,7 @@ class _Frame:
         last = torch.where(is_ext, tok, a["last"][bi, node])
         parent_cnt = a["cnt"][bi, node]
         cnt = parent_cnt + is_ext.to(torch.int32)
-        dec_out, (post_h, post_c) = predictor_step(
-            self.pred_params, last, (pre_h.transpose(0, 1), pre_c.transpose(0, 1)),
-            self.rnnt_cfg)
+        dec_out, post_h, post_c = self.pred_step(last, pre_h, pre_c)
 
         # the node: the parent's rows with the token appended when it extends
         q = kc + it
@@ -156,12 +161,10 @@ class _Frame:
         a["last"][:, q] = last
         a["pre_h"][:, q] = pre_h
         a["pre_c"][:, q] = pre_c
-        a["post_h"][:, q] = post_h.transpose(0, 1)
-        a["post_c"][:, q] = post_c.transpose(0, 1)
+        a["post_h"][:, q] = post_h
+        a["post_c"][:, q] = post_c
 
-        logits = joint_step_from_enc_proj(self.joint_params, self.enc_row, dec_out,
-                                          self.rnnt_cfg)
-        lp_blank, top_lp, top_tok = self.topm(logits, self.beam_k, self.rnnt_cfg.blank_id)
+        lp_blank, top_lp, top_tok = self.joint_step(self.enc_row, dec_out)
 
         # kept: the blank extension (done lanes write _DEAD: theirs is frozen)
         self.ks[:, it] = torch.where(active, score + lp_blank, _DEAD)
@@ -222,16 +225,37 @@ class _Frame:
         return it
 
 
+def _make_pred_step(pred_params, rnnt_cfg: RNNTConfig, cfg: GravesBeamConfig):
+    """One predictor step on [B] tokens with the arena's state layout
+    [B, L, H]: (dec_out [B, H] fp32, post_h, post_c [B, L, H]); through the
+    LSTM cell kernel where ``rnnt_beam.lstm_kernel_step`` applies."""
+    fused = lstm_kernel_step(pred_params, rnnt_cfg, cfg.lstm_impl)
+    if fused is None:
+        def pred_step(tokens, pre_h, pre_c):
+            dec_out, (post_h, post_c) = predictor_step(
+                pred_params, tokens, (pre_h.transpose(0, 1), pre_c.transpose(0, 1)), rnnt_cfg)
+            return dec_out, post_h.transpose(0, 1), post_c.transpose(0, 1)
+
+        return pred_step
+
+    def pred_step(tokens, pre_h, pre_c):
+        dec_out, hs, cs = fused(tokens, pre_h.unbind(1), pre_c.unbind(1))
+        return dec_out, torch.stack(hs, dim=1), torch.stack(cs, dim=1)
+
+    return pred_step
+
+
 def _decode(pred_params, joint_params, enc, enc_lengths, rnnt_cfg, cfg):
     _check_supported(rnnt_cfg, cfg)
     b, t, _ = enc.shape
     dev = enc.device
     lane_len = enc_lengths.to(device=dev, dtype=torch.int32)
     dims = _dims(rnnt_cfg, cfg, t)
-    k, _, _, kc, u_buf, n_nodes, _ = dims
+    k, beam_k, _, kc, u_buf, n_nodes, _ = dims
     layers, hid = rnnt_cfg.pred_rnn_layers, rnnt_cfg.pred_hidden
     enc_proj = joint_precompute_enc(joint_params, enc, rnnt_cfg)  # [B, T, J]
-    topm = topm_logsoftmax if cfg.topk_impl == "pallas" else topm_logsoftmax_plain
+    pred_step = _make_pred_step(pred_params, rnnt_cfg, cfg)
+    joint_step = joint_tail(joint_params, rnnt_cfg, cfg, beam_k)
 
     i32 = dict(dtype=torch.int32, device=dev)
     state = dict(dtype=torch.float32, device=dev)
@@ -259,8 +283,8 @@ def _decode(pred_params, joint_params, enc, enc_lengths, rnnt_cfg, cfg):
 
     for f in range(n_frames):
         in_frame = f < lane_len  # [B]
-        frame = _Frame(arenas, cs, in_frame, enc_proj[:, f], f, pred_params, joint_params,
-                       rnnt_cfg, topm, dims)
+        frame = _Frame(arenas, cs, in_frame, enc_proj[:, f].contiguous(), f, pred_step,
+                       joint_step, dims)
         host["pops_issued"] += frame.run(waits)
         saturated |= frame.saturated
 

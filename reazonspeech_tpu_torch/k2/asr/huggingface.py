@@ -76,8 +76,8 @@ def load_model(device=None, precision="fp32", language="ja", checkpoint=None,
       precision (str): "fp32", "int8" or "int8-fp32"
       language (str): "ja", "ja-en" or "ja-en-mls-5k"
       checkpoint (str): explicit converted-checkpoint path, or "random"
-      decoding (str): "greedy" (the reference's pinned strategy, default);
-        "beam" is not ported and raises NotImplementedError
+      decoding (str): "greedy" (the reference's pinned strategy, default)
+        or "beam" (ALSD beam search, beam 4); None keeps the container default
 
     Returns:
       K2TorchModel

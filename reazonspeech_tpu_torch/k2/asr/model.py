@@ -1,8 +1,9 @@
 """k2-flavor model container: Zipformer + stateless transducer (PyTorch).
 
 Port of ``reazonspeech_tpu.k2.asr.model``: kaldi-convention fbank →
-Zipformer2 encoder → label-looping greedy decode with the k2 stateless
-(2-token context) prediction network, blank-first token convention. The
+Zipformer2 encoder → label-looping greedy decode (or, with
+``decoding="beam"``, ALSD beam search) with the k2 stateless (2-token
+context) prediction network, blank-first token convention. The
 waveform is the only host→device copy and the emission buffers the only
 device→host copy of a batch.
 
@@ -24,6 +25,7 @@ from ...convert.quantize import dequantize_tree, is_quantized
 from ...convert.store import load_param_tree
 from ...core.hub import CheckpointNotFoundError
 from ...core.tokenizer import VocabTokenizer
+from ...decoding.rnnt_beam import BeamDecodeConfig, rnnt_beam_decode
 from ...decoding.rnnt_greedy import GreedyDecodeConfig, rnnt_greedy_decode
 from ...device import resolve_device, set_fp32_matmul_policy
 from ...frontend.features import FrontendConfig, kaldi_frontend_config, log_mel_spectrogram
@@ -43,13 +45,18 @@ SECONDS_PER_FRAME = 0.04
 
 
 def k2_forward(params, waveform, lengths, fe_cfg: FrontendConfig, enc_cfg: ZipformerConfig,
-               rnnt_cfg: RNNTConfig, decode_cfg: GreedyDecodeConfig):
+               rnnt_cfg: RNNTConfig, decode_cfg):
     """waveform [B, N] float32, lengths [B] int (tensors on one device) ->
-    (tokens [B, U], frames [B, U], counts [B], enc_lengths [B])."""
+    (tokens [B, U], frames [B, U], counts [B], enc_lengths [B]). A
+    ``BeamDecodeConfig`` decodes with ALSD, a ``GreedyDecodeConfig`` greedily."""
     feats, flens = log_mel_spectrogram(waveform, lengths, fe_cfg)
     enc, elens = zipformer_encode(params["encoder"], feats, flens, enc_cfg)
-    tokens, frames, counts = rnnt_greedy_decode(
-        params["predictor"], params["joint"], enc, elens, rnnt_cfg, decode_cfg)
+    if isinstance(decode_cfg, BeamDecodeConfig):
+        tokens, frames, counts, _ = rnnt_beam_decode(
+            params["predictor"], params["joint"], enc, elens, rnnt_cfg, decode_cfg)
+    else:
+        tokens, frames, counts = rnnt_greedy_decode(
+            params["predictor"], params["joint"], enc, elens, rnnt_cfg, decode_cfg)
     return tokens, frames, counts, elens
 
 
@@ -59,7 +66,7 @@ class K2TorchModel:
     fe_cfg: FrontendConfig
     enc_cfg: ZipformerConfig
     rnnt_cfg: RNNTConfig
-    decode_cfg: GreedyDecodeConfig
+    decode_cfg: object  # GreedyDecodeConfig or BeamDecodeConfig
     tokenizer: object
     device: torch.device
 
@@ -111,6 +118,7 @@ def load_model_container(
     rnnt_cfg: Optional[RNNTConfig] = None,
     token_list=None,
     decoding: str = "greedy",
+    beam_size: int = 4,
     seed: int = 0,
     device=None,
 ) -> K2TorchModel:
@@ -123,14 +131,11 @@ def load_model_container(
     otherwise raises (the HF-hub resolution lives in load_model,
     k2/asr/huggingface.py). On CUDA, an encoder config not passed explicitly
     is the serving configuration (see module notes). ``decoding="beam"``
-    (modified beam search with the stateless predictor) is not ported and
-    raises NotImplementedError.
+    decodes with ALSD beam search of ``beam_size`` over the stateless
+    predictor, as the reference; its opt-in kernels stay off (replace
+    ``decode_cfg`` to set ``joint_impl``).
     """
-    if decoding == "beam":
-        raise NotImplementedError(
-            "k2 decoding='beam' (beam search with the stateless predictor) is not ported; "
-            "use decoding='greedy'")
-    if decoding != "greedy":
+    if decoding not in ("greedy", "beam"):
         raise ValueError(f"Unknown decoding: '{decoding}'")
     device = resolve_device(device)
     on_cuda = device.type == "cuda"
@@ -175,5 +180,7 @@ def load_model_container(
 
     return K2TorchModel(
         params=params, fe_cfg=kaldi_frontend_config(n_mels=enc_cfg.feat_in), enc_cfg=enc_cfg,
-        rnnt_cfg=rnnt_cfg, decode_cfg=GreedyDecodeConfig(),
+        rnnt_cfg=rnnt_cfg,
+        decode_cfg=BeamDecodeConfig(beam_size=beam_size) if decoding == "beam"
+        else GreedyDecodeConfig(),
         tokenizer=VocabTokenizer(token_list), device=device)

@@ -8,17 +8,19 @@ tensors. Every kernel launch is counted under the kernel's name
 per-frame LayerNorm; the [B, H, T, dh] attention's two entries as
 ``relpos_attention`` (single pass) and ``relpos_attention_blockwise``
 (streamed), and the Zipformer shared attention's as
-``shared_rel_attention`` and ``shared_rel_attention_blockwise``. The
+``shared_rel_attention`` and ``shared_rel_attention_blockwise``; the beam
+decoders' opt-in step kernels as ``joint_topm`` and ``lstm_cell_step``. The
 [B, H, T, dh] attention and its twins are imported from
 ``ops.relpos_attention``: the single-pass entry shares the module's name,
 so this package does not re-export them."""
 
 from ._kernels import KERNELS, launches
-from .beam_topk import topm_logsoftmax, topm_logsoftmax_plain
+from .beam_topk import joint_topm, joint_topm_plain, topm_logsoftmax, topm_logsoftmax_plain
 from .conformer_conv import fold_batch_norm, fused_conv_module, fused_conv_module_plain
 from .ln_dense import (
     add_ln, add_ln_plain, ln_dense, ln_dense_add, ln_dense_add_plain, ln_dense_plain,
 )
+from .lstm_step import lstm_cell_step, lstm_cell_step_plain
 from .relpos_attention import (
     relpos_attention_fused, relpos_attention_fused_packed, relpos_attention_fused_packed_plain,
     relpos_attention_fused_plain,
@@ -41,8 +43,9 @@ def launch_counts():
 
 __all__ = [
     "KERNELS", "add_ln", "add_ln_plain", "fold_batch_norm", "fused_conv_module",
-    "fused_conv_module_plain", "launch_counts", "ln_dense", "ln_dense_add",
-    "ln_dense_add_plain", "ln_dense_plain", "relpos_attention_fused",
+    "fused_conv_module_plain", "joint_topm", "joint_topm_plain", "launch_counts", "ln_dense",
+    "ln_dense_add", "ln_dense_add_plain", "ln_dense_plain", "lstm_cell_step",
+    "lstm_cell_step_plain", "relpos_attention_fused",
     "relpos_attention_fused_packed", "relpos_attention_fused_packed_plain",
     "relpos_attention_fused_plain", "reset_launch_counts", "shared_rel_attention",
     "shared_rel_attention_blockwise", "shared_rel_attention_blockwise_plain",

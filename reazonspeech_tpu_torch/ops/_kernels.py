@@ -27,8 +27,8 @@ from pathlib import Path
 
 import torch
 
-__all__ = ["KERNELS", "build_info", "check_cuda", "launch", "launches", "load_library",
-           "stream_of"]
+__all__ = ["KERNELS", "as_dtype", "build_info", "check_cuda", "launch", "launches",
+           "load_library", "stream_of"]
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -71,6 +71,11 @@ _SIGNATURES = {
     # q, k, qp, pos, v, lengths, out, G, T, qd, pd, dv, heads, scale, stream
     "rs_shared_rel_attention": [_P] * 7 + [_I] * 6 + [_F, _P],
     "rs_shared_rel_attention_blockwise": [_P] * 7 + [_I] * 6 + [_F, _P],
+    # w_pred, b_pred, w_out, b_out, enc, dec, f32 scratch, i32 scratch,
+    # lp_blank, top_lp, top_tok, R, H, J, V, m, blank, activation, stream
+    "rs_joint_topm": [_P] * 11 + [_I] * 7 + [_P],
+    # x, h, c, w_ih, w_hh, bias, h_out, c_out, R, H_in, H, stream
+    "rs_lstm_cell_step": [_P] * 8 + [_I] * 3 + [_P],
 }
 KERNELS = tuple(name.removeprefix("rs_") for name in _SIGNATURES)
 # kernel name -> launches since the last reset (ops.reset_launch_counts)
@@ -170,6 +175,11 @@ def launch(name, *args):
 
 def stream_of(t):
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def as_dtype(dtype):
+    """A torch dtype from its name ("float32") or itself."""
+    return getattr(torch, dtype) if isinstance(dtype, str) else dtype
 
 
 def check_cuda(name, t, dtype, shape=None, device=None):

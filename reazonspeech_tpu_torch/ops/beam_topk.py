@@ -8,17 +8,27 @@ log-probs with blank excluded, ties going to the LOWEST index (the order of
 CUDA, and bf16 joint logits tie often). On a CUDA tensor it launches the
 hand-written kernel in ``csrc/beam_topk.cu``; on a CPU tensor it runs
 :func:`topm_logsoftmax_plain`.
+
+``joint_topm`` is the port of ``reazonspeech_tpu.ops.beam_topk.joint_topm``:
+the joint's prediction projection, activation and output projection before
+the same top-m, the beam decoders' whole per-step tail when
+``joint_impl="pallas"``, in fp32. On a CUDA tensor it launches the kernel in
+``csrc/joint_topm.cu`` (fp32 only: a bf16 ``compute_dtype`` raises); on a CPU
+tensor it runs :func:`joint_topm_plain`, which takes both dtypes.
 """
 
 import torch
 
-from ._kernels import check_cuda, launch, stream_of
+from ._kernels import as_dtype, check_cuda, launch, stream_of
 
-__all__ = ["topm_logsoftmax", "topm_logsoftmax_plain"]
+__all__ = ["joint_topm", "joint_topm_plain", "topm_logsoftmax", "topm_logsoftmax_plain"]
 
 _NEG = -1.0e30  # value of an excluded column (blank, already picked)
 _MAX_M = 32  # the CUDA kernel keeps the picked indices in a fixed array
 _MAX_V = 48 * 1024  # the CUDA kernel holds a row in shared memory as fp32
+_MAX_DEPTH = 3000  # joint_topm's kernels stage 16 rows of dec and z in shared memory
+_TILE = 32  # joint_topm's kernel: columns of V per block
+_ACTIVATIONS = ("relu", "tanh", "sigmoid")  # their codes in csrc/joint_topm.cu
 
 
 def topm_logsoftmax_plain(logits, m, blank):
@@ -70,3 +80,72 @@ def topm_logsoftmax(logits, m, blank):
                int(logits.dtype == torch.bfloat16), stream_of(logits))
     return lp_blank, top_lp, top_tok
 
+
+def _activate(z, activation):
+    if activation == "relu":
+        return torch.relu(z)
+    if activation == "tanh":
+        return torch.tanh(z)
+    if activation == "sigmoid":
+        return torch.sigmoid(z)
+    raise ValueError(f"unknown activation {activation!r}")
+
+
+def joint_topm_plain(w_pred, b_pred, w_out, b_out, enc_proj_row, dec_out, m, blank, *,
+                     activation="relu", compute_dtype="bfloat16"):
+    """Plain PyTorch twin, the JAX ``joint_topm_xla``: the joint in
+    ``compute_dtype``, then :func:`topm_logsoftmax_plain` on fp32 logits."""
+    cdt = as_dtype(compute_dtype)
+    z = enc_proj_row.to(cdt) + (dec_out.to(cdt) @ w_pred.to(cdt) + b_pred.to(cdt))
+    logits = (_activate(z, activation) @ w_out.to(cdt) + b_out.to(cdt)).to(torch.float32)
+    return topm_logsoftmax_plain(logits, m, blank)
+
+
+def joint_topm(w_pred, b_pred, w_out, b_out, enc_proj_row, dec_out, m, blank, *,
+               activation="relu", compute_dtype="bfloat16"):
+    """Joint projection + activation + output projection + log-softmax +
+    blank split + exact top-m of each row.
+
+    Args:
+      w_pred: [H, J]; b_pred: [J]; w_out: [J, V]; b_out: [V]
+      enc_proj_row: [R, J] the encoder side of the joint at each row's frame
+      dec_out: [R, H] the prediction network's output
+      m: label expansions per row (m <= 32 and m < V on CUDA); blank: its column
+        (on CUDA, H and J are multiples of 4 and at most 3000, V <= 49152)
+      activation: "relu", "tanh" or "sigmoid"
+      compute_dtype: the joint's dtype; the CUDA kernel takes "float32" only
+
+    Returns (lp_blank [R] f32, top_lp [R, m] f32, top_tok [R, m] int32), as
+    :func:`topm_logsoftmax`.
+    """
+    if enc_proj_row.device.type == "cpu":
+        return joint_topm_plain(w_pred, b_pred, w_out, b_out, enc_proj_row, dec_out, m, blank,
+                                activation=activation, compute_dtype=compute_dtype)
+    if as_dtype(compute_dtype) != torch.float32:
+        raise ValueError(f"joint_topm: compute_dtype {compute_dtype} on CUDA; the beam decoders "
+                         "pass float32 only, the kernel takes nothing else")
+    if activation not in _ACTIVATIONS:
+        raise ValueError(f"unknown activation {activation!r}")
+    r, j = enc_proj_row.shape
+    hid, v = dec_out.shape[-1], w_out.shape[-1]
+    if (not 1 <= m <= min(_MAX_M, v - 1) or not 0 <= blank < v or v > _MAX_V
+            or max(hid, j) > _MAX_DEPTH or hid % 4 or j % 4):
+        raise ValueError(f"joint_topm: m={m}, blank={blank}, H={hid}, J={j}, V={v} out of range")
+    f32, dev = torch.float32, enc_proj_row.device
+    for name, t, shape in (("w_pred", w_pred, (hid, j)), ("b_pred", b_pred, (j,)),
+                           ("w_out", w_out, (j, v)), ("b_out", b_out, (v,)),
+                           ("enc_proj_row", enc_proj_row, (r, j)), ("dec_out", dec_out, (r, hid))):
+        check_cuda(name, t, f32, shape, dev)
+    tiles = -(-v // _TILE)
+    f32_scratch = torch.empty((r * (j + 2 * tiles + 1 + tiles * m),), dtype=f32, device=dev)
+    i32_scratch = torch.empty((r * tiles * m,), dtype=torch.int32, device=dev)
+    lp_blank = torch.empty((r,), dtype=f32, device=dev)
+    top_lp = torch.empty((r, m), dtype=f32, device=dev)
+    top_tok = torch.empty((r, m), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        launch("rs_joint_topm", w_pred.data_ptr(), b_pred.data_ptr(), w_out.data_ptr(),
+               b_out.data_ptr(), enc_proj_row.data_ptr(), dec_out.data_ptr(),
+               f32_scratch.data_ptr(), i32_scratch.data_ptr(), lp_blank.data_ptr(),
+               top_lp.data_ptr(), top_tok.data_ptr(), r, hid, j, v, m, blank,
+               _ACTIVATIONS.index(activation), stream_of(enc_proj_row))
+    return lp_blank, top_lp, top_tok

@@ -11,8 +11,9 @@ import pytest
 import torch
 
 from reazonspeech_tpu_torch.ops import (
-    add_ln, add_ln_plain, fused_conv_module, fused_conv_module_plain, launch_counts, ln_dense,
-    ln_dense_add, ln_dense_add_plain, ln_dense_plain, relpos_attention_fused,
+    add_ln, add_ln_plain, fused_conv_module, fused_conv_module_plain, joint_topm,
+    joint_topm_plain, launch_counts, ln_dense, ln_dense_add, ln_dense_add_plain, ln_dense_plain,
+    lstm_cell_step, lstm_cell_step_plain, relpos_attention_fused,
     relpos_attention_fused_packed, relpos_attention_fused_packed_plain,
     relpos_attention_fused_plain, reset_launch_counts, shared_rel_attention,
     shared_rel_attention_blockwise, shared_rel_attention_blockwise_plain,
@@ -407,3 +408,151 @@ def test_tiny_espnet_model_runs_the_kernels(dev, monkeypatch):
     reset_launch_counts()
     model.decode_single(wav[:21 * 16000])
     assert launch_counts()["relpos_attention_blockwise"] > 0
+
+
+# (r, h, j, v, blank, activation, m): nemo ALSD (beam 4 x 4 lanes), espnet
+# Graves (4 lanes, beam 20), k2 ALSD, then ragged R on nemo's and espnet's
+# widths, and more rows than the kernels' 16-row tile
+JOINT_SHAPES = [(16, 640, 640, 3001, 3000, "relu", 4), (4, 256, 256, 2182, 0, "tanh", 20),
+                (16, 512, 512, 2179, 0, "tanh", 4), (1, 640, 640, 3001, 3000, "relu", 4),
+                (5, 256, 256, 2182, 0, "tanh", 20), (16, 256, 256, 2182, 2181, "sigmoid", 20),
+                (37, 128, 96, 301, 7, "relu", 5)]
+
+
+def _joint_inputs(dev, r, h, j, v, seed, act="tanh", blank=0, m=1):
+    """Random fp32 inputs, redrawn until the m + 1 best labels of every row
+    are 1e-5 apart in float64: no near-tie that two fp32 summation orders
+    could break differently, so the kernel's picks must equal the twin's."""
+    gen = torch.Generator().manual_seed(seed)
+    f32 = torch.float32
+    while True:
+        args = (_rand(gen, h, j, scale=h ** -0.5, dtype=f32), _rand(gen, j, scale=0.1, dtype=f32),
+                _rand(gen, j, v, scale=j ** -0.5, dtype=f32), _rand(gen, v, scale=0.1, dtype=f32),
+                _rand(gen, r, j, dtype=f32), _rand(gen, r, h, dtype=f32))
+        wp, bp, wo, bo, enc, dec = (a.double() for a in args)
+        act_fn = {"relu": torch.relu, "tanh": torch.tanh, "sigmoid": torch.sigmoid}[act]
+        logits = act_fn(enc + (dec @ wp + bp)) @ wo + bo
+        logits[:, blank] = -1e30
+        best = logits.topk(m + 1, dim=1).values
+        if (best[:, :-1] - best[:, 1:]).min() > 1e-5:
+            return args
+
+
+@pytest.mark.parametrize("r,h,j,v,blank,act,m", JOINT_SHAPES)
+def test_joint_topm_kernel_matches_plain(dev, r, h, j, v, blank, act, m):
+    """fp32: indices equal, log-probs within 1e-5 (the sums run in another
+    order: over 32-column tiles and 8 slices of the depth)."""
+    args = _joint_inputs(dev, r, h, j, v, seed=r * v + m, act=act, blank=blank, m=m)
+    kw = dict(activation=act, compute_dtype="float32")
+    reset_launch_counts()
+    got = joint_topm(*args, m, blank, **kw)
+    want = joint_topm_plain(*args, m, blank, **kw)
+    torch.cuda.synchronize()
+    assert launch_counts()["joint_topm"] == 1
+    assert got[2].dtype == torch.int32 and got[1].shape == (r, m)
+    assert torch.equal(got[2], want[2])
+    for g, w in zip(got[:2], want[:2]):
+        assert _max_err(g, w) <= 1e-5
+
+
+@pytest.mark.parametrize("blank", [0, 2181])
+def test_joint_topm_kernel_ties_to_lowest_index(dev, blank):
+    """Exact ties: a zero output projection leaves logits = b_out, integers
+    in [-3, 3], so every top-m pick is a tie the lowest column must win."""
+    w_pred, b_pred, w_out, _, enc, dec = _joint_inputs(dev, 4, 256, 256, 2182, seed=blank)
+    gen = torch.Generator().manual_seed(1)
+    b_out = torch.randint(-3, 4, (2182,), generator=gen).to(device=dev, dtype=torch.float32)
+    args = (w_pred, b_pred, torch.zeros_like(w_out), b_out, enc, dec)
+    got = joint_topm(*args, 20, blank, activation="tanh", compute_dtype="float32")
+    want = joint_topm_plain(*args, 20, blank, activation="tanh", compute_dtype="float32")
+    torch.cuda.synchronize()
+    assert torch.equal(got[2], want[2])
+    assert (got[2][:, 1:] > got[2][:, :-1]).all()  # all tied at 3: increasing columns
+
+
+# (r, h_in, h): nemo ALSD, espnet Graves, ragged R, more rows than a tile
+LSTM_SHAPES = [(16, 640, 640), (4, 256, 256), (1, 640, 640), (5, 256, 256), (37, 128, 384)]
+
+
+@pytest.mark.parametrize("r,h_in,h", LSTM_SHAPES)
+def test_lstm_cell_kernel_matches_plain(dev, r, h_in, h):
+    """fp32: h' and c' within 1e-5 of the twin (the gate sums in another
+    order); also within 1e-5 of torch.lstm_cell, the same cell with the
+    weights as [4H, in]."""
+    gen = torch.Generator().manual_seed(r + h)
+    f32 = torch.float32
+    w_ih, w_hh = _rand(gen, h_in, 4 * h, scale=0.1, dtype=f32), _rand(gen, h, 4 * h, scale=0.1,
+                                                                       dtype=f32)
+    bias = _rand(gen, 4 * h, scale=0.1, dtype=f32)
+    x, hp, cp = _rand(gen, r, h_in, dtype=f32), _rand(gen, r, h, dtype=f32), _rand(gen, r, h,
+                                                                                  dtype=f32)
+    reset_launch_counts()
+    got = lstm_cell_step(w_ih, w_hh, bias, x, hp, cp, compute_dtype="float32")
+    want = lstm_cell_step_plain(w_ih, w_hh, bias, x, hp, cp, compute_dtype="float32")
+    lib = torch.lstm_cell(x, (hp, cp), w_ih.t().contiguous(), w_hh.t().contiguous(), bias,
+                          torch.zeros_like(bias))
+    torch.cuda.synchronize()
+    assert launch_counts()["lstm_cell_step"] == 1
+    for g, w, ref in zip(got, want, lib):
+        assert g.shape == (r, h) and g.dtype == f32
+        assert _max_err(g, w) <= 1e-5
+        assert _max_err(g, ref) <= 1e-5
+
+
+def test_step_kernels_refuse_bf16_and_bad_inputs(dev):
+    """The decoders pass fp32 only: a bf16 compute dtype raises, as do
+    inputs the kernels do not take; nothing falls back to the twin."""
+    args = _joint_inputs(dev, 4, 256, 256, 2182, seed=0)
+    with pytest.raises(ValueError, match="float32"):
+        joint_topm(*args, 4, 0, activation="tanh", compute_dtype="bfloat16")
+    with pytest.raises(ValueError):
+        joint_topm(*args, 40, 0, activation="tanh", compute_dtype="float32")  # m > 32
+    with pytest.raises(TypeError):
+        joint_topm(*args[:5], args[5].to(torch.bfloat16), 4, 0, activation="tanh",
+                   compute_dtype="float32")
+    x = args[5]
+    w = torch.zeros(256, 1024, device=dev)
+    with pytest.raises(ValueError, match="float32"):
+        lstm_cell_step(w, w, w[0], x, x, x, compute_dtype="bfloat16")
+    with pytest.raises(ValueError):
+        lstm_cell_step(w, w, w[0], x, x[:, :128], x, compute_dtype="float32")  # h of H/2
+
+
+def _to(tree, dev):
+    """A nest of dicts, lists and tuples of tensors, on ``dev``."""
+    if isinstance(tree, dict):
+        return {k: _to(v, dev) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_to(v, dev) for v in tree)
+    return tree.to(dev)
+
+
+@pytest.mark.parametrize("decoding", ["alsd", "graves"])
+def test_tiny_decoders_run_the_step_kernels(dev, decoding):
+    """ALSD and Graves with joint_impl/lstm_impl="pallas" on the card at a
+    tiny width (pred_hidden 128): both step kernels launch, the top-m kernel
+    does not, and the tokens equal those of the twins on the CPU."""
+    from reazonspeech_tpu_torch.decoding import rnnt_beam, transducer_graves
+    from reazonspeech_tpu_torch.models.rnnt import RNNTConfig, init_joint, init_predictor
+
+    rnnt_cfg = RNNTConfig(vocab_size=200, enc_dim=64, pred_hidden=128, joint_hidden=64,
+                          compute_dtype="float32", blank_position=(
+                              "last" if decoding == "alsd" else "first"))
+    gen = torch.Generator().manual_seed(0)
+    params = (init_predictor(gen, rnnt_cfg), init_joint(gen, rnnt_cfg))
+    enc = torch.randn((3, 20, 64), generator=gen)
+    lens = torch.tensor([20, 13, 4])
+    if decoding == "alsd":
+        fn, cfg = rnnt_beam.rnnt_beam_decode, rnnt_beam.BeamDecodeConfig(
+            beam_size=4, topk_impl="pallas", joint_impl="pallas", lstm_impl="pallas")
+    else:
+        fn, cfg = transducer_graves.graves_beam_decode, transducer_graves.GravesBeamConfig(
+            beam_size=4, topk_impl="pallas", joint_impl="pallas", lstm_impl="pallas")
+    reset_launch_counts()
+    got = fn(*_to(params, dev), enc.to(dev), lens.to(dev), rnnt_cfg, cfg)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    assert counts["joint_topm"] > 0 and counts["lstm_cell_step"] > 0, counts
+    assert counts["topm_logsoftmax"] == 0
+    want = fn(*params, enc, lens, rnnt_cfg, cfg)
+    assert torch.equal(got[0].cpu(), want[0]) and torch.equal(got[2].cpu(), want[2])

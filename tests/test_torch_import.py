@@ -28,6 +28,9 @@ ESPNET_MODULES = [
     for m in ("model", "ctc", "transcribe", "interface", "cli")
 ] + ["reazonspeech_tpu_torch.decoding.ctc", "reazonspeech_tpu_torch.decoding.transducer_graves",
      "reazonspeech_tpu_torch.models.conformer"]
+# the beam decoders' step kernels
+DECODE_STEP_MODULES = ["reazonspeech_tpu_torch." + m
+                       for m in ("ops.lstm_step", "ops.beam_topk", "decoding.rnnt_beam")]
 
 
 def test_port_imports_no_jax():
@@ -39,5 +42,5 @@ def test_port_imports_no_jax():
     n_modules, leaked = first.split()[0], first.strip().partition(" ")[2]
     assert int(n_modules) >= 20
     assert leaked == "", f"imported by the port: {leaked}"
-    missing = sorted(set(ESPNET_MODULES) - set(names.split()))
+    missing = sorted(set(ESPNET_MODULES + DECODE_STEP_MODULES) - set(names.split()))
     assert not missing, f"not imported: {missing}"

@@ -192,8 +192,8 @@ def test_load_model_validation_errors():
         load_model(language="de")
     with pytest.raises(ValueError, match="Unknown precision"):
         load_model(precision="fp16")
-    with pytest.raises(NotImplementedError, match="beam"):
-        load_model("cpu", checkpoint="random", decoding="beam")
+    with pytest.raises(ValueError, match="Unknown decoding: 'maes'"):
+        load_model("cpu", checkpoint="random", decoding="maes")
 
 
 @pytest.fixture
@@ -245,6 +245,8 @@ def test_load_model_default_device_is_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         load_model(checkpoint="random")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        load_model(checkpoint="random", decoding="beam")
 
 
 def test_cuda_serving_config_is_the_slice():
