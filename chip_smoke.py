@@ -25,16 +25,26 @@ Phases, each of which fails the run (nonzero exit, no result line):
    then the beam decoders' step kernels in fp32: the fused joint + top-m at
    nemo ALSD's, espnet Graves' and k2 ALSD's shapes and on exact ties, and
    the LSTM cell at nemo's and espnet's predictors beside torch.lstm_cell;
+   then the top-m and step kernels past their former size caps (m = 40,
+   V = 50,000, H = J = 3,072, H_in = H = 1,536). The LayerNorm-fused
+   projections (rows 4-5) are also timed with the GEMM's column tile forced
+   to 128 and to 256, beside the bare cuBLAS bf16 product on the same
+   operands (a yardstick; the port never calls it);
 4. nemo path: load_model(device="cuda", checkpoint="random") in its GPU
    serving configuration (lnd_impl="pallas": every encoder kernel) at the
    full xlarge width and depth (24 blocks, d=1024), transcribe_batch of
    4 x 30 s and a chunked transcribe of 70 s; then the earlier
    configuration (lnd_impl="xla", whose attention and conv kernels take
    separate q/k/v and a caller-side LayerNorm) at full width and 4 blocks
-   through one transcribe_batch. Then, on a short input: the encoder and
-   the ALSD decode against the same path with the plain twins in place of
-   the kernels, and the encoder against the lnd_impl="xla" configuration on
-   the same weights;
+   through one transcribe_batch; then where the 4 x 30 s encoder spends its
+   device time at full depth on the same weights in both lnd_impl
+   configurations (device busy ms, device ops, the largest items, CUDA-event
+   ms; each must have launched its kernels). Then, on a short input: the
+   encoder and the ALSD decode against the same path with the plain twins in
+   place of the kernels, and the encoder against the lnd_impl="xla"
+   configuration on the same weights; then load_model(beam_size=40) (m = 40
+   label expansions a hypothesis on the top-m kernel) through a 5 s
+   transcribe, its tokens against the same decode with the top-m twin;
 5. k2 path: asr.load_model(device="cuda", checkpoint="random") at the
    published reazonspeech-k2-v2 shape (ZipformerConfig.large(), full width
    and depth, attn_impl="pallas"), transcribe_batch of 4 x 30 s (every
@@ -347,14 +357,41 @@ def kernel_checks(dev):
     torch.cuda.synchronize()
     check(torch.equal(got[2], want[2]), "topm_logsoftmax: tie order differs from the plain twin")
     log("topm_logsoftmax integer-tie case: indices equal")
-    return (rows + bucket_kernel_checks(rand, dev) + shared_attention_checks(rand, dev)
-            + espnet_kernel_checks(rand, dev) + step_kernel_checks(rand, dev))
+    rows += bucket_kernel_checks(rand, dev) + shared_attention_checks(rand, dev)
+    rows += espnet_kernel_checks(rand, dev) + step_kernel_checks(rand, dev)
+    wide_kernel_checks(rand, dev)
+    return rows
 
 
 def bf16_tol(want):
     """2 bf16 ulps at the largest |value|: the kernel and the twin round at
     the same points, only their fp32 sums differ in order."""
     return 2.0 * 2.0 ** (np.floor(np.log2(want.float().abs().max().item())) - 7)
+
+
+def gemm_yardstick(row, label, xn, w, forced):
+    """Rows 4-5 beside the bare cuBLAS bf16 product xn · w on the same
+    operands (one [D, ΣNi] weight: the q/k/v segments concatenated once,
+    outside the timing), by CUDA events and by profiler device time, into
+    ``row["cublas_ms"]`` (events) and the log with the ratio the kernel's
+    device time bears to it; then the kernel with its GEMM's column tile
+    forced to 128 and to 256 (``forced(tile_n)``), device and events ms."""
+    import torch
+
+    def product():
+        return torch.matmul(xn, w)
+
+    row["cublas_ms"] = cuda_ms(product, 20)
+    dev_ms = device_ms(product, 20)
+    ratio = "not measured" if dev_ms is None or row["device_ms"] is None else \
+        f"{row['device_ms'] / dev_ms:.2f}x"
+    log(f"{row['name']} ({label}): the bare cuBLAS bf16 product {tuple(xn.shape)} x "
+        f"{tuple(w.shape)}: events ms {row['cublas_ms']:.4f}, device ms {fmt_ms(dev_ms)}; "
+        f"the kernel's device ms {fmt_ms(row['device_ms'])} is {ratio} it (bar 2x)")
+    for tile_n in (128, 256):
+        log(f"{row['name']} ({label}), GEMM column tile forced to {tile_n}: device ms "
+            f"{fmt_ms(device_ms(lambda: forced(tile_n), 20))}, events ms "
+            f"{cuda_ms(lambda: forced(tile_n), 20):.4f}")
 
 
 def bucket_kernel_checks(rand, dev):
@@ -366,7 +403,7 @@ def bucket_kernel_checks(rand, dev):
     import torch
 
     from reazonspeech_tpu_torch import ops
-    from reazonspeech_tpu_torch.ops.ln_dense import layer_norm_fp32
+    from reazonspeech_tpu_torch.ops.ln_dense import _ln_dense_cuda, layer_norm_fp32
 
     f32, bf16, rows = torch.float32, torch.bfloat16, []
     b, t, d, h, k = 4, 401, 1024, 8, 9
@@ -381,8 +418,8 @@ def bucket_kernel_checks(rand, dev):
                          iters=20, kwargs=dict(activation="swish"), label="FFN-in",
                          flops=flops_ln_dense))
     xn = layer_norm_fp32(x, g, beta).to(bf16)
-    log(f"ln_dense FFN-in: the bare cuBLAS bf16 product [1604, 1024] x [1024, 4096] takes "
-        f"{cuda_ms(lambda: torch.matmul(xn, w_ffn), 20):.4f} ms")
+    gemm_yardstick(rows[-1], "FFN-in", xn, w_ffn,
+                   lambda n: _ln_dense_cuda(x, None, 1.0, g, beta, w_ffn, c_ffn, "swish", 1e-5, n))
     # packed q/k/v: three [1024, 1024] segments
     w_qkv = tuple(rand(d, d, scale=0.5 * d ** -0.5) for _ in range(3))
     c_qkv = tuple(rand(d, scale=0.1, dtype=f32) for _ in range(3))
@@ -394,6 +431,8 @@ def bucket_kernel_checks(rand, dev):
                          (x, delta, g, beta, w_qkv, c_qkv), ("bf16", 1e-5), iters=20,
                          kwargs=dict(scale=0.5),
                          flops=lambda a, o: flops_ln_dense(a, o, w_at=4)))
+    gemm_yardstick(rows[-1], "q/k/v", xn, torch.cat(w_qkv, dim=1),
+                   lambda n: _ln_dense_cuda(x, delta, 0.5, g, beta, w_qkv, c_qkv, None, 1e-5, n))
     # the block tail: fp32 LN of r + 0.5·y, ragged lengths
     rows.append(_compare("add_ln", ops.add_ln, ops.add_ln_plain, (x, delta, lengths, g, beta),
                          1e-4, iters=20, kwargs=dict(scale=0.5), flops=flops_add_ln))
@@ -584,29 +623,12 @@ def step_kernel_checks(rand, dev):
     from reazonspeech_tpu_torch import ops
 
     f32, rows = torch.float32, []
-    acts = {"relu": torch.relu, "tanh": torch.tanh, "sigmoid": torch.sigmoid}
-
-    def joint_args(r, h, v, blank, act, m):
-        # redrawn until the m + 1 best labels of every row are 1e-5 apart in
-        # float64: no near-tie that two fp32 summation orders could break
-        # differently, so the picks must be equal
-        while True:
-            args = (rand(h, h, scale=h ** -0.5, dtype=f32), rand(h, scale=0.1, dtype=f32),
-                    rand(h, v, scale=h ** -0.5, dtype=f32), rand(v, scale=0.1, dtype=f32),
-                    rand(r, h, dtype=f32), rand(r, h, dtype=f32))
-            wp, bp, wo, bo, enc, dec = (a.double() for a in args)
-            logits = acts[act](enc + (dec @ wp + bp)) @ wo + bo
-            logits[:, blank] = -1e30
-            best = logits.topk(m + 1, dim=1).values
-            if (best[:, :-1] - best[:, 1:]).min() > 1e-5:
-                return args + (m, blank)
-
     # fp32 both, the sums in another order (tiles of 32 columns, 8 slices of
     # the depth): 1e-5 on log-probs of |.| < ~20; indices exactly
     for label, r, h, v, blank, act, m in (("nemo ALSD", 16, 640, 3001, 3000, "relu", 4),
                                           ("espnet Graves", 4, 256, 2182, 0, "tanh", 20),
                                           ("k2 ALSD", 16, 512, 2179, 0, "tanh", 4)):
-        args = joint_args(r, h, v, blank, act, m)
+        args = _joint_args(rand, r, h, v, blank, act, m)
         row = _compare("joint_topm", ops.joint_topm, ops.joint_topm_plain, args, 1e-5, iters=200,
                        kwargs=dict(activation=act, compute_dtype="float32"),
                        label=f"{label}, R={r}, H=J={h}, V={v}, m={m}", flops=flops_joint)
@@ -632,6 +654,58 @@ def step_kernel_checks(rand, dev):
                        library=lambda: torch.lstm_cell(x, (hp, cp), w_ih_t, w_hh_t, bias, zero))
         rows += [row] if label == "nemo ALSD" else []
     return rows
+
+
+def _joint_args(rand, r, h, v, blank, act, m):
+    """fp32 inputs of joint_topm at H = J = h, redrawn until the m + 1 best
+    labels of every row are 1e-5 apart in float64: no near-tie that two fp32
+    summation orders could break differently, so the picks must be equal."""
+    import torch
+
+    f32 = torch.float32
+    acts = {"relu": torch.relu, "tanh": torch.tanh, "sigmoid": torch.sigmoid}
+    while True:
+        args = (rand(h, h, scale=h ** -0.5, dtype=f32), rand(h, scale=0.1, dtype=f32),
+                rand(h, v, scale=h ** -0.5, dtype=f32), rand(v, scale=0.1, dtype=f32),
+                rand(r, h, dtype=f32), rand(r, h, dtype=f32))
+        wp, bp, wo, bo, enc, dec = (a.double() for a in args)
+        logits = acts[act](enc + (dec @ wp + bp)) @ wo + bo
+        logits[:, blank] = -1e30
+        best = logits.topk(m + 1, dim=1).values
+        if (best[:, :-1] - best[:, 1:]).min() > 1e-5:
+            return args + (m, blank)
+
+
+def wide_kernel_checks(rand, dev):
+    """The top-m kernel (row 3), the fused joint (row 12) and the LSTM cell
+    (row 13) at shapes past their former caps (m <= 32, V <= 49,152, a
+    depth of at most 3,000), tolerances as at the paths' shapes: the top-m
+    at m = 40 on nemo's V and at V = 50,000 (seven tiles and the merge
+    launch), the joint at m = 40 and V = 50,000 and at H = J = 3,072, the
+    LSTM cell at H_in = H = 1,536 (the depth in two chunks). Logged only."""
+    import torch
+
+    from reazonspeech_tpu_torch import ops
+
+    f32 = torch.float32
+    for label, r, v, m, blank in (("R=16, V=3001, m=40", 16, 3001, 40, 3000),
+                                  ("R=4, V=50000, m=40", 4, 50000, 40, 0)):
+        _compare("topm_logsoftmax", ops.topm_logsoftmax, ops.topm_logsoftmax_plain,
+                 (rand(r, v, scale=3.0, dtype=f32), m, blank), 1e-4, iters=20, label=label,
+                 flops=flops_topm)
+    for label, r, h, v, m in (("R=16, H=J=640, V=50000, m=40", 16, 640, 50000, 40),
+                              ("R=16, H=J=3072, V=3001, m=4", 16, 3072, 3001, 4)):
+        _compare("joint_topm", ops.joint_topm, ops.joint_topm_plain,
+                 _joint_args(rand, r, h, v, v - 1, "relu", m), 1e-5, iters=20,
+                 kwargs=dict(activation="relu", compute_dtype="float32"), label=label,
+                 flops=flops_joint)
+    r, h = 16, 1536
+    w_ih, w_hh = (rand(h, 4 * h, scale=h ** -0.5, dtype=f32) for _ in range(2))
+    args = (w_ih, w_hh, rand(4 * h, scale=0.1, dtype=f32), rand(r, h, dtype=f32),
+            rand(r, h, scale=0.5, dtype=f32), rand(r, h, dtype=f32))
+    _compare("lstm_cell_step", ops.lstm_cell_step, ops.lstm_cell_step_plain, args,
+             (1e-5, 1e-5), iters=20, kwargs=dict(compute_dtype="float32"),
+             label="R=16, H_in=H=1536", flops=flops_lstm)
 
 
 def _compare(name, kernel, plain, args, atol, iters, *, flops, kwargs=None, label=None,
@@ -684,7 +758,7 @@ def _compare(name, kernel, plain, args, atol, iters, *, flops, kwargs=None, labe
     return {"name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": REPLACES[name], "launches": 0, "max_abs_err": max(errs),
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by,
-            "library_ms": library_ms}
+            "library_ms": library_ms, "device_ms": dev_ms}
 
 
 # --- phases 4 and 5: the nemo and k2 paths ------------------------------------
@@ -790,9 +864,106 @@ def main_path(dev, name):
           f"a kernel of the lnd_impl=xla path was not launched: {earlier_counts}")
     del earlier
 
+    nemo_profile(model, batch)
     reference_check(model)
     return {k: (counts[k] if k in SERVING_KERNELS else earlier_counts[k])
             for k in SERVING_KERNELS + EARLIER_KERNELS}
+
+
+# the encoder kernels of each nemo LayerNorm configuration
+NEMO_ENCODER_KERNELS = {"pallas": ("ln_dense", "ln_dense_add", "relpos_attention_fused_packed",
+                                   "fused_conv_module_ln", "add_ln"),
+                        "xla": ("relpos_attention_fused", "fused_conv_module")}
+
+
+def nemo_profile(model, batch):
+    """Where the nemo encoder of the 4 x 30 s batch (the 32 s bucket: T=401)
+    spends its device time, at full depth on the model's weights, in the
+    serving configuration (lnd_impl="pallas") and in lnd_impl="xla": for
+    each, its kernels' launches in one encode (every one must have
+    launched), the device busy ms, device ops and largest items
+    (torch.profiler, 3 encodes) and the CUDA-event ms (median of 5)."""
+    import statistics
+    from dataclasses import replace
+
+    import torch
+
+    from reazonspeech_tpu_torch import ops
+    from reazonspeech_tpu_torch.frontend.features import log_mel_spectrogram
+    from reazonspeech_tpu_torch.models.fastconformer import fastconformer_encode
+
+    buf = np.zeros((len(batch), 32 * SR), np.float32)
+    for i, a in enumerate(batch):
+        buf[i, :len(a.waveform)] = a.waveform
+    busy = {}
+    with torch.inference_mode():
+        wav = torch.from_numpy(buf).to(model.device)
+        lens = torch.tensor([len(a.waveform) for a in batch], dtype=torch.int32,
+                            device=model.device)
+        feats, fl = log_mel_spectrogram(wav, lens, model.fe_cfg)
+        for lnd, kernels in NEMO_ENCODER_KERNELS.items():
+            cfg = replace(model.enc_cfg, lnd_impl=lnd)
+
+            def encode():
+                return fastconformer_encode(model.params["encoder"], feats, fl, cfg)
+
+            ops.reset_launch_counts()
+            enc, _ = encode()
+            torch.cuda.synchronize()
+            counts = {k: v for k, v in ops.launch_counts().items() if v}
+            check(all(counts.get(k, 0) > 0 for k in kernels),
+                  f"nemo encoder, lnd_impl={lnd}: a kernel was not launched: {counts}")
+            items = device_items(encode, 3)
+            check(items, f"nemo encoder, lnd_impl={lnd}: the profiler recorded no device kernel")
+            enc_ms = statistics.median(cuda_ms(encode, 1, warmup=0) for _ in range(5))
+            busy[lnd] = sum(ms for _, ms, _ in items)
+            log(f"nemo encoder 4 x 30 s (T={enc.shape[1]}), lnd_impl={lnd}: device busy "
+                f"{busy[lnd]:.3f} ms, {sum(c for _, _, c in items):.0f} device ops; CUDA events "
+                f"{enc_ms:.3f} ms (median of 5); kernel launches {counts}")
+            for key, ms, calls in sorted(items, key=lambda x: -x[1])[:12]:
+                log(f"nemo encoder item, lnd_impl={lnd}: {ms:.3f} ms x{calls:.0f} {key[:100]}")
+    log(f"nemo encoder device busy: lnd_impl=pallas {busy['pallas']:.3f} ms, lnd_impl=xla "
+        f"{busy['xla']:.3f} ms ({'below' if busy['pallas'] < busy['xla'] else 'not below'})")
+
+
+def nemo_beam40_phase(name):
+    """load_model(beam_size=40): ALSD beam 40, m = 40 label expansions a
+    hypothesis on the top-m kernel (past its former cap of 32), at the
+    xlarge width and depth; a 5 s transcribe with the kernel and with its
+    plain twin: tokens equal under the near-tie rule. Returns the kernel's
+    launches."""
+    import torch
+
+    from reazonspeech_tpu_torch import ops
+    from reazonspeech_tpu_torch.nemo.asr import audio_from_numpy, load_model, transcribe
+
+    model = load_model(device="cuda", checkpoint="random", beam_size=40)
+    cfg = model.decode_cfg
+    check((cfg.beam_size, cfg.topk_impl) == (40, "pallas"), f"nemo beam 40: {cfg}")
+    audio = audio_from_numpy(speech_like(5.0, seed=70), SR)
+    transcribe(model, audio)  # warm-up
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = transcribe(model, audio)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    check(counts["topm_logsoftmax"] > 0, f"nemo beam 40: the top-m kernel was not launched: "
+                                         f"{counts}")
+    check_results([res], [5.0])
+    log(f"nemo ALSD beam 40, transcribe 5 s: {wall:.3f} s wall on {name}; "
+        f"{counts['topm_logsoftmax']} top-m launches (m=40); {len(res.subwords)} subwords")
+
+    def rerun(twins):
+        with plain_twins(("topm_logsoftmax",)) if twins else contextlib.nullcontext():
+            out = transcribe(model, audio)
+            torch.cuda.synchronize()
+        return out
+
+    same_decode("nemo ALSD beam 40, 5 s", res, rerun(True), rerun, "alsd")
+    del model
+    return counts["topm_logsoftmax"]
 
 
 def reference_check(model):
@@ -1355,7 +1526,7 @@ def same_decode(what, got, want, rerun, kind):
     that gap is under 1e-4: a near-tie that the kernel's and the twin's fp32
     summation orders break differently."""
     if _same(got, want):
-        log(f"{what}: tokens with the step kernels == with their plain twins")
+        log(f"{what}: tokens with the kernels == with their plain twins")
         return
     rec_k, rec_t = [], []
     with recorded(kind, rec_k):
@@ -1615,6 +1786,7 @@ def main():
 
     rows = kernel_checks(dev)
     counts = main_path(dev, f"{smi}")
+    nemo_beam40_phase(f"{smi}")
     counts.update(nemo_step_path(f"{smi}"))  # rows 12-13 take their launches from here
     counts.update(k2_path(f"{smi}"))
     k2_beam_path(f"{smi}")

@@ -4,6 +4,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <cstdint>
+
 namespace rs {
 
 __device__ __forceinline__ float to_float(float x) { return x; }
@@ -29,6 +31,12 @@ __device__ __forceinline__ float warp_max(float v) {
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+  return v;
+}
+
+__device__ __forceinline__ int warp_min(int v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v = min(v, __shfl_xor_sync(0xffffffffu, v, off));
   return v;
 }
 
@@ -65,6 +73,18 @@ __device__ __forceinline__ float block_sum(float v, float* s_f) {
   float r = s_f[0];
 #pragma unroll
   for (int w = 1; w < NT / 32; ++w) r += s_f[w];
+  __syncthreads();
+  return r;
+}
+
+template <int NT>
+__device__ __forceinline__ int block_min(int v, int* s_i) {
+  v = warp_min(v);
+  if (threadIdx.x % 32 == 0) s_i[threadIdx.x / 32] = v;
+  __syncthreads();
+  int r = s_i[0];
+#pragma unroll
+  for (int w = 1; w < NT / 32; ++w) r = min(r, s_i[w]);
   __syncthreads();
   return r;
 }

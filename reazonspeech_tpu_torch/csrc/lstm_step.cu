@@ -16,8 +16,8 @@
 //
 // Design: each block owns 8 hidden units u and computes their four gate
 // columns u, H+u, 2H+u and 3H+u (32 columns: one per lane) for 16 rows at a
-// time with decode_step.cuh's product, reading those columns of W_ih and
-// W_hh once a row tile. The gates stay in shared memory; 128 threads then
+// time with decode_step.cuh's product (the depth H_in + H staged in chunks
+// of 2,048), reading those columns of W_ih and W_hh once a row tile. The gates stay in shared memory; 128 threads then
 // apply the cell to (row, unit) pairs and write h' and c'. One launch per
 // layer, and the [R, 4H] gates never reach device memory (the unfused chain
 // writes and reads them, and launches ~10 ops).
@@ -36,7 +36,7 @@ lstm_cell_kernel(const float* __restrict__ x, const float* __restrict__ h,
                  const float* __restrict__ w_hh, const float* __restrict__ bias,
                  float* __restrict__ h_out, float* __restrict__ c_out, int R, int H_in, int H) {
   extern __shared__ float4 smem4[];
-  float* a_s = reinterpret_cast<float*>(smem4);  // [H_in + H][RT]
+  float* a_s = reinterpret_cast<float*>(smem4);  // [min(H_in + H, KC)][RT]
   __shared__ float red[NKS * RT * NC];
   __shared__ float g_s[RT * NC];  // the gate sums of the tile: [RT][4 gates x UNITS]
   const int u0 = blockIdx.x * UNITS;
@@ -44,8 +44,7 @@ lstm_cell_kernel(const float* __restrict__ x, const float* __restrict__ h,
   const int unit = u0 + lane % UNITS;
   const int col = (lane / UNITS) * H + unit;  // gate (lane / UNITS) of this unit
   for (int r0 = 0; r0 < R; r0 += RT) {
-    stage(a_s, x, H_in, h, H, R, r0);
-    dot(a_s, w_ih, H_in, w_hh, H, 4 * H, col, unit < H, red, g_s);
+    dot(a_s, x, H_in, h, H, R, r0, w_ih, w_hh, 4 * H, col, unit < H, red, g_s);
     if (threadIdx.x < RT * UNITS) {  // one thread per (row, unit)
       const int r = threadIdx.x / UNITS, uo = threadIdx.x % UNITS;
       const int row = r0 + r, u = u0 + uo;
@@ -71,8 +70,7 @@ extern "C" int rs_lstm_cell_step(const void* x, const void* h, const void* c, co
                                  const void* w_hh, const void* bias, void* h_out, void* c_out,
                                  int R, int H_in, int H, void* stream) {
   const size_t smem = stage_bytes(H_in + H);
-  if (R <= 0 || H_in <= 0 || H <= 0 || H_in % 4 || H % 4 || smem > MAX_STAGE_BYTES)
-    return static_cast<int>(cudaErrorInvalidValue);
+  if (R <= 0 || H_in <= 0 || H <= 0) return static_cast<int>(cudaErrorInvalidValue);
   const int err = allow_smem(lstm_cell_kernel, smem);
   if (err != 0) return err;
   lstm_cell_kernel<<<(H + UNITS - 1) / UNITS, NT, smem, static_cast<cudaStream_t>(stream)>>>(

@@ -59,15 +59,16 @@ _SIGNATURES = {
     "rs_fused_conv_module_layer": [_P] * 13 + [_I] * 4 + [_P],
     "rs_fused_conv_module_ln_layer": [_P] * 16 + [_I] * 4 + [_P],
     # x, g, b, w0, w1, w2, c0, c1, c2, n0, n1, n2, LN scratch, out, M, D,
-    # swish, eps, stream
-    "rs_ln_dense": [_P] * 9 + [_I] * 3 + [_P] * 2 + [_I] * 3 + [_F, _P],
+    # swish, eps, tile_n, stream
+    "rs_ln_dense": [_P] * 9 + [_I] * 3 + [_P] * 2 + [_I] * 3 + [_F, _I, _P],
     # r, delta, g, b, w0, w1, w2, c0, c1, c2, n0, n1, n2, LN scratch,
-    # summed-stream out, out, M, D, swish, scale, eps, stream
-    "rs_ln_dense_add": [_P] * 10 + [_I] * 3 + [_P] * 3 + [_I] * 3 + [_F, _F, _P],
+    # summed-stream out, out, M, D, swish, scale, eps, tile_n, stream
+    "rs_ln_dense_add": [_P] * 10 + [_I] * 3 + [_P] * 3 + [_I] * 3 + [_F, _F, _I, _P],
     # r, y, g, b, lengths, out, B, T, D, scale, eps, stream
     "rs_add_ln": [_P] * 6 + [_I] * 3 + [_F, _F, _P],
-    # logits, lp_blank, top_lp, top_tok, R, V, m, blank, is_bf16, stream
-    "rs_topm_logsoftmax": [_P] * 4 + [_I] * 5 + [_P],
+    # logits, lp_blank, top_lp, top_tok, f32 scratch, i32 scratch, R, V, m,
+    # blank, is_bf16, stream
+    "rs_topm_logsoftmax": [_P] * 6 + [_I] * 5 + [_P],
     # q, k, qp, pos, v, lengths, out, G, T, qd, pd, dv, heads, scale, stream
     "rs_shared_rel_attention": [_P] * 7 + [_I] * 6 + [_F, _P],
     "rs_shared_rel_attention_blockwise": [_P] * 7 + [_I] * 6 + [_F, _P],

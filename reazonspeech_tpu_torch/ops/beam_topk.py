@@ -24,9 +24,7 @@ from ._kernels import as_dtype, check_cuda, launch, stream_of
 __all__ = ["joint_topm", "joint_topm_plain", "topm_logsoftmax", "topm_logsoftmax_plain"]
 
 _NEG = -1.0e30  # value of an excluded column (blank, already picked)
-_MAX_M = 32  # the CUDA kernel keeps the picked indices in a fixed array
-_MAX_V = 48 * 1024  # the CUDA kernel holds a row in shared memory as fp32
-_MAX_DEPTH = 3000  # joint_topm's kernels stage 16 rows of dec and z in shared memory
+_ROW_TILE = 8192  # topm_logsoftmax's kernel: columns of a row per block (more: a merge)
 _TILE = 32  # joint_topm's kernel: columns of V per block
 _ACTIVATIONS = ("relu", "tanh", "sigmoid")  # their codes in csrc/joint_topm.cu
 
@@ -57,7 +55,7 @@ def topm_logsoftmax(logits, m, blank):
 
     Args:
       logits: [R, V] float32 or bfloat16 (compute is fp32)
-      m: label expansions per row (m ≤ 32 and V ≤ 49152 on CUDA)
+      m: label expansions per row
       blank: blank column
 
     Returns (lp_blank [R] f32, top_lp [R, m] f32, top_tok [R, m] int32).
@@ -65,7 +63,7 @@ def topm_logsoftmax(logits, m, blank):
     if logits.device.type == "cpu":
         return topm_logsoftmax_plain(logits, m, blank)
     r, v = logits.shape
-    if not 1 <= m <= min(_MAX_M, v) or not 0 <= blank < v or v > _MAX_V:
+    if m < 1 or not 0 <= blank < v:
         raise ValueError(f"topm_logsoftmax: m={m}, blank={blank}, V={v} out of range")
     if logits.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"topm_logsoftmax: dtype {logits.dtype} not supported")
@@ -74,9 +72,17 @@ def topm_logsoftmax(logits, m, blank):
     lp_blank = torch.empty((r,), dtype=torch.float32, device=dev)
     top_lp = torch.empty((r, m), dtype=torch.float32, device=dev)
     top_tok = torch.empty((r, m), dtype=torch.int32, device=dev)
+    tiles = -(-v // _ROW_TILE)
+    f32_scratch = i32_scratch = None  # a row of one tile needs no partials
+    if tiles > 1:
+        f32_scratch = torch.empty((r * (2 * tiles + 1 + tiles * m),), dtype=torch.float32,
+                                  device=dev)
+        i32_scratch = torch.empty((r * tiles * (m + 1),), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         launch("rs_topm_logsoftmax", logits.data_ptr(), lp_blank.data_ptr(),
-               top_lp.data_ptr(), top_tok.data_ptr(), r, v, m, blank,
+               top_lp.data_ptr(), top_tok.data_ptr(),
+               None if f32_scratch is None else f32_scratch.data_ptr(),
+               None if i32_scratch is None else i32_scratch.data_ptr(), r, v, m, blank,
                int(logits.dtype == torch.bfloat16), stream_of(logits))
     return lp_blank, top_lp, top_tok
 
@@ -110,8 +116,7 @@ def joint_topm(w_pred, b_pred, w_out, b_out, enc_proj_row, dec_out, m, blank, *,
       w_pred: [H, J]; b_pred: [J]; w_out: [J, V]; b_out: [V]
       enc_proj_row: [R, J] the encoder side of the joint at each row's frame
       dec_out: [R, H] the prediction network's output
-      m: label expansions per row (m <= 32 and m < V on CUDA); blank: its column
-        (on CUDA, H and J are multiples of 4 and at most 3000, V <= 49152)
+      m: label expansions per row; blank: its column
       activation: "relu", "tanh" or "sigmoid"
       compute_dtype: the joint's dtype; the CUDA kernel takes "float32" only
 
@@ -128,9 +133,8 @@ def joint_topm(w_pred, b_pred, w_out, b_out, enc_proj_row, dec_out, m, blank, *,
         raise ValueError(f"unknown activation {activation!r}")
     r, j = enc_proj_row.shape
     hid, v = dec_out.shape[-1], w_out.shape[-1]
-    if (not 1 <= m <= min(_MAX_M, v - 1) or not 0 <= blank < v or v > _MAX_V
-            or max(hid, j) > _MAX_DEPTH or hid % 4 or j % 4):
-        raise ValueError(f"joint_topm: m={m}, blank={blank}, H={hid}, J={j}, V={v} out of range")
+    if m < 1 or not 0 <= blank < v:
+        raise ValueError(f"joint_topm: m={m}, blank={blank}, V={v} out of range")
     f32, dev = torch.float32, enc_proj_row.device
     for name, t, shape in (("w_pred", w_pred, (hid, j)), ("b_pred", b_pred, (j,)),
                            ("w_out", w_out, (j, v)), ("b_out", b_out, (v,)),
@@ -138,7 +142,7 @@ def joint_topm(w_pred, b_pred, w_out, b_out, enc_proj_row, dec_out, m, blank, *,
         check_cuda(name, t, f32, shape, dev)
     tiles = -(-v // _TILE)
     f32_scratch = torch.empty((r * (j + 2 * tiles + 1 + tiles * m),), dtype=f32, device=dev)
-    i32_scratch = torch.empty((r * tiles * m,), dtype=torch.int32, device=dev)
+    i32_scratch = torch.empty((r * tiles * (m + 1),), dtype=torch.int32, device=dev)
     lp_blank = torch.empty((r,), dtype=f32, device=dev)
     top_lp = torch.empty((r, m), dtype=f32, device=dev)
     top_tok = torch.empty((r, m), dtype=torch.int32, device=dev)

@@ -15,8 +15,9 @@ The dtype chain is the JAX kernels': fp32 LayerNorm statistics (mean,
 centred variance, eps) and affine, the normalized rows rounded to the
 weights' dtype, products accumulated in fp32, then the fp32 bias and
 optional swish and one rounding at the end. On CUDA tensors the ops launch
-the hand-written kernels in ``csrc/ln_dense.cu``; on CPU tensors they run
-their ``*_plain`` twins.
+the hand-written kernels in ``csrc/ln_dense.cu`` (the projection on
+``csrc/gemm_sm90.cuh``'s TMA + wgmma GEMM); on CPU tensors they run their
+``*_plain`` twins.
 """
 
 import torch
@@ -27,8 +28,7 @@ __all__ = ["add_ln", "add_ln_plain", "layer_norm_fp32", "ln_dense", "ln_dense_ad
            "ln_dense_add_plain", "ln_dense_plain"]
 
 _MAX_SEGMENTS = 3
-_TILE_N = 64  # the CUDA GEMM's output column tile: every segment is a whole number of them
-_TILE_K = 32  # its K-step: D is a whole number of them
+_ALIGN = 8  # D and every segment width: the CUDA GEMM's TMA reads rows of whole 16-byte units
 
 
 def _segments(w, c):
@@ -94,7 +94,7 @@ def ln_dense(x, ln_scale, ln_bias, w, c=None, *, activation=None, eps=1e-5):
       x: [B, T, D] residual stream (fp32 on CUDA)
       ln_scale, ln_bias: [D] LayerNorm affine
       w: [D, N] weights in the compute dtype, or a tuple of up to three
-        [D, Ni] segments (bf16 with Ni % 64 == 0 on CUDA)
+        [D, Ni] segments (bf16 with D and Ni multiples of 8 on CUDA)
       c: [N] bias, a matching tuple, or None
       activation: None or "swish"
 
@@ -153,13 +153,15 @@ def _affine(ln_scale, ln_bias, d, dev):
     return g, bb
 
 
-def _ln_dense_cuda(x, delta, scale, ln_scale, ln_bias, w, c, activation, eps):
+def _ln_dense_cuda(x, delta, scale, ln_scale, ln_bias, w, c, activation, eps, tile_n=0):
+    """The kernel path; ``tile_n`` forces the GEMM's output column tile (128
+    or 256; 0 lets the kernel choose), for timing the two."""
     ws, cs = _segments(w, c)
     _check_activation(activation)
     bf16, f32, dev = torch.bfloat16, torch.float32, x.device
     b, t, d = x.shape
-    if d % _TILE_K:
-        raise ValueError(f"ln_dense: D={d} must be a multiple of {_TILE_K}")
+    if d % _ALIGN:
+        raise ValueError(f"ln_dense: D={d} must be a multiple of {_ALIGN}")
     check_cuda("x", x, f32, (b, t, d))
     if delta is not None:
         check_cuda("delta", delta, bf16, (b, t, d), dev)
@@ -167,9 +169,9 @@ def _ln_dense_cuda(x, delta, scale, ln_scale, ln_bias, w, c, activation, eps):
     ns, biases = [], []
     for i, (wi, ci) in enumerate(zip(ws, cs)):
         check_cuda(f"w[{i}]", wi, bf16, device=dev)
-        if wi.dim() != 2 or wi.shape[0] != d or wi.shape[1] % _TILE_N:
+        if wi.dim() != 2 or wi.shape[0] != d or wi.shape[1] % _ALIGN or not wi.shape[1]:
             raise ValueError(f"ln_dense: w[{i}] shape {tuple(wi.shape)}, expected "
-                             f"[{d}, a multiple of {_TILE_N}]")
+                             f"[{d}, a positive multiple of {_ALIGN}]")
         n = wi.shape[1]
         ci = torch.zeros(n, dtype=f32, device=dev) if ci is None else ci.to(f32).contiguous()
         check_cuda(f"c[{i}]", ci, f32, (n,), dev)
@@ -186,10 +188,10 @@ def _ln_dense_cuda(x, delta, scale, ln_scale, ln_bias, w, c, activation, eps):
         if delta is None:
             launch("rs_ln_dense", x.data_ptr(), g.data_ptr(), bb.data_ptr(), *w_ptrs, *c_ptrs,
                    *widths, xn.data_ptr(), out.data_ptr(), b * t, d, swish, float(eps),
-                   stream_of(x))
+                   tile_n, stream_of(x))
             return out, None
         summed = torch.empty_like(x)
         launch("rs_ln_dense_add", x.data_ptr(), delta.data_ptr(), g.data_ptr(), bb.data_ptr(),
                *w_ptrs, *c_ptrs, *widths, xn.data_ptr(), summed.data_ptr(), out.data_ptr(),
-               b * t, d, swish, float(scale), float(eps), stream_of(x))
+               b * t, d, swish, float(scale), float(eps), tile_n, stream_of(x))
     return out, summed

@@ -15,7 +15,6 @@ from ._kernels import as_dtype, check_cuda, launch, stream_of
 
 __all__ = ["lstm_cell_step", "lstm_cell_step_plain"]
 
-_MAX_DEPTH = 3000  # the kernel stages 16 rows of [x | h] in shared memory
 
 def lstm_cell_step_plain(w_ih, w_hh, bias, x, h, c, *, compute_dtype="bfloat16"):
     """Plain PyTorch twin, the JAX ``lstm_cell_step_xla``: the gate products
@@ -36,7 +35,6 @@ def lstm_cell_step(w_ih, w_hh, bias, x, h, c, *, compute_dtype="bfloat16"):
       w_ih: [H_in, 4H]; w_hh: [H, 4H]; bias: [4H] (b_ih + b_hh, summed)
       x: [R, H_in]; h, c: [R, H] the previous state
       compute_dtype: the products' dtype; the CUDA kernel takes "float32" only
-        (and H_in, H multiples of 4 with H_in + H <= 3000)
 
     Returns (h_new [R, H] f32, c_new [R, H] f32); h_new is also the output.
     """
@@ -47,9 +45,6 @@ def lstm_cell_step(w_ih, w_hh, bias, x, h, c, *, compute_dtype="bfloat16"):
                          "decoders pass float32 only, the kernel takes nothing else")
     r, h_in = x.shape
     hid = h.shape[-1]
-    if h_in + hid > _MAX_DEPTH or h_in % 4 or hid % 4:
-        raise ValueError(f"lstm_cell_step: H_in={h_in}, H={hid}: the kernel takes multiples "
-                         f"of 4 with H_in + H <= {_MAX_DEPTH}")
     f32, dev = torch.float32, x.device
     for name, t, shape in (("x", x, (r, h_in)), ("h", h, (r, hid)), ("c", c, (r, hid)),
                            ("w_ih", w_ih, (h_in, 4 * hid)), ("w_hh", w_hh, (hid, 4 * hid)),

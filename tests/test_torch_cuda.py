@@ -94,6 +94,46 @@ def test_topm_kernel_matches_plain(dev, dtype, integer):
     torch.testing.assert_close(got[1], want[1], atol=1e-4, rtol=0)
 
 
+# (r, v, m, blank, dtype): m past 32 and V past one 8,192-column tile (the
+# merge launch), bf16 and fp32, m > V (the EXCLUDED pool after the labels)
+TOPM_WIDE = [(16, 3001, 40, 3000, torch.float32), (16, 3001, 64, 0, torch.bfloat16),
+             (4, 50000, 40, 0, torch.float32), (4, 50000, 64, 49999, torch.bfloat16),
+             (3, 50000, 4, 17, torch.float32), (2, 8300, 8310, 8299, torch.float32),
+             (2, 30, 40, 5, torch.float32)]
+
+
+@pytest.mark.parametrize("r,v,m,blank,dtype", TOPM_WIDE)
+def test_topm_kernel_wide_matches_plain(dev, r, v, m, blank, dtype):
+    """Indices equal (the picks compare the logits themselves), log-probs to
+    1e-4 (the log-sum-exp summed in another order)."""
+    gen = torch.Generator().manual_seed(v + m)
+    x = (torch.randn((r, v), generator=gen) * 3.0).to(device=dev, dtype=dtype)
+    got = topm_logsoftmax(x, m, blank)
+    want = topm_logsoftmax_plain(x, m, blank)
+    torch.cuda.synchronize()
+    assert got[1].shape == (r, m) and torch.equal(got[2], want[2])
+    torch.testing.assert_close(got[0], want[0], atol=1e-4, rtol=0)
+    torch.testing.assert_close(got[1], want[1], atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("v", [300, 20000])
+def test_topm_kernel_excluded_pool(dev, v):
+    """Rows with -inf, exactly -1e30 and few finite logits: past the finite
+    labels the rounds take the JAX kernel's -1e30 pool (its lowest column),
+    in one tile and across three."""
+    gen = torch.Generator().manual_seed(v)
+    x = torch.full((3, v), float("-inf"))
+    x[:, 7::997] = torch.randn((3, len(range(7, v, 997))), generator=gen)
+    x[0, 3] = x[1, v - 2] = -1e30
+    x[2, 1::2] = -1e31
+    x = x.to(dev)
+    got = topm_logsoftmax(x, 30, 5)
+    want = topm_logsoftmax_plain(x, 30, 5)
+    torch.cuda.synchronize()
+    assert torch.equal(got[2], want[2])
+    torch.testing.assert_close(got[1], want[1], atol=1e-4, rtol=0)
+
+
 def _bf16_tol(want):
     """2 bf16 ulps at the largest |value| (the kernel and the twin round at
     the same points; only their fp32 sums differ in order)."""
@@ -105,36 +145,51 @@ def _max_err(got, want):
     return (got.float() - want.float()).abs().max().item()
 
 
-# the serving shapes (B=4, T=401, D=1024) and an odd one (T=33, D=128)
-LN_SHAPES = [(401, 1024, (4096,), "swish"), (401, 1024, (1024,) * 3, None),
-             (33, 128, (512,), "swish"), (33, 128, (128,) * 3, None)]
+# (b, t, d, widths, act): nemo's serving shapes (B=4, T=401, D=1024: FFN-in
+# and the packed q/k/v), espnet's (B=4, T=549, D=512), M = B·T of 1, 127
+# and 129 (one row, one short of a 128-row tile, one past it), D from 128 to
+# 2,048, segment widths of 64, 192 (a ragged column tile) and up, both
+# activations, and the odd T=33
+LN_SHAPES = [(4, 401, 1024, (4096,), "swish"), (4, 401, 1024, (1024,) * 3, None),
+             (4, 549, 512, (2048,), "swish"), (4, 549, 512, (512,) * 3, None),
+             (1, 1, 128, (64,), "swish"), (1, 1, 1024, (1024,) * 3, None),
+             (1, 127, 512, (192,), None), (1, 127, 2048, (4096,), "swish"),
+             (1, 129, 2048, (64,), None), (1, 129, 128, (192,), "swish"),
+             (4, 33, 128, (512,), "swish"), (4, 33, 128, (128,) * 3, None)]
 
 
-def _ln_inputs(dev, t, d, widths, seed):
+def _ln_inputs(dev, b, t, d, widths, seed):
     gen = torch.Generator().manual_seed(seed)
     f32 = torch.float32
-    x = _rand(gen, 4, t, d, dtype=f32) + 0.5
+    x = _rand(gen, b, t, d, dtype=f32) + 0.5
     g, b = 1.0 + _rand(gen, d, scale=0.1, dtype=f32), _rand(gen, d, scale=0.1, dtype=f32)
     ws = tuple(_rand(gen, d, n, scale=0.5 * d ** -0.5) for n in widths)
     cs = tuple(_rand(gen, n, scale=0.1, dtype=f32) for n in widths)
     return gen, x, g, b, (ws if len(ws) > 1 else ws[0]), (cs if len(cs) > 1 else cs[0])
 
 
-@pytest.mark.parametrize("t,d,widths,act", LN_SHAPES)
-def test_ln_dense_kernel_matches_plain(dev, t, d, widths, act):
-    """bf16 out within 2 bf16 ulps of the twin at the largest |value|."""
-    _, x, g, b, w, c = _ln_inputs(dev, t, d, widths, seed=t + d)
+@pytest.mark.parametrize("bt,d,widths,act", [((b, t), d, w, a) for b, t, d, w, a in LN_SHAPES])
+def test_ln_dense_kernel_matches_plain(dev, bt, d, widths, act):
+    """bf16 out within 2 bf16 ulps of the twin at the largest |value|, with
+    the GEMM's column tile chosen by the kernel and forced to 128 and 256."""
+    from reazonspeech_tpu_torch.ops.ln_dense import _ln_dense_cuda
+
+    _, x, g, b, w, c = _ln_inputs(dev, *bt, d, widths, seed=bt[1] + d)
     got = ln_dense(x, g, b, w, c, activation=act)
     want = ln_dense_plain(x, g, b, w, c, act)
     torch.cuda.synchronize()
     assert _max_err(got, want) <= _bf16_tol(want)
+    for tile_n in (128, 256):
+        got = _ln_dense_cuda(x, None, 1.0, g, b, w, c, act, 1e-5, tile_n)[0]
+        torch.cuda.synchronize()
+        assert _max_err(got, want) <= _bf16_tol(want), tile_n
 
 
-@pytest.mark.parametrize("t,d,widths,act", LN_SHAPES)
-def test_ln_dense_add_kernel_matches_plain(dev, t, d, widths, act):
+@pytest.mark.parametrize("bt,d,widths,act", [((b, t), d, w, a) for b, t, d, w, a in LN_SHAPES])
+def test_ln_dense_add_kernel_matches_plain(dev, bt, d, widths, act):
     """The projection as ln_dense; the fp32 stream r + 0.5·delta to 1e-5."""
-    gen, x, g, b, w, c = _ln_inputs(dev, t, d, widths, seed=t * d)
-    delta = _rand(gen, 4, t, d)
+    gen, x, g, b, w, c = _ln_inputs(dev, *bt, d, widths, seed=bt[1] * d)
+    delta = _rand(gen, *bt, d)
     got, got_x = ln_dense_add(x, delta, g, b, w, c, scale=0.5, activation=act)
     want, want_x = ln_dense_add_plain(x, delta, g, b, w, c, 0.5, act)
     torch.cuda.synchronize()
@@ -146,7 +201,7 @@ def test_ln_dense_add_kernel_matches_plain(dev, t, d, widths, act):
 def test_add_ln_kernel_matches_plain(dev, t, d):
     """fp32 out to 1e-4 (the statistics summed in another order); rows at
     or past each length exactly zero."""
-    gen, x, g, b, _, _ = _ln_inputs(dev, t, d, (64,), seed=t)
+    gen, x, g, b, _, _ = _ln_inputs(dev, 4, t, d, (64,), seed=t)
     y = _rand(gen, 4, t, d)
     lengths = torch.tensor([t, t - 13, 7, 1], dtype=torch.int32, device=dev)
     got = add_ln(x, y, lengths, g, b, scale=0.5)
@@ -196,11 +251,17 @@ def test_conv_module_ln_kernel_matches_plain(dev, t, d):
 
 def test_wrong_inputs_raise(dev):
     """The wrappers refuse what the kernels do not take; nothing falls back."""
-    _, x, g, b, w, c = _ln_inputs(dev, 33, 128, (128,), seed=0)
+    _, x, g, b, w, c = _ln_inputs(dev, 4, 33, 128, (128,), seed=0)
     with pytest.raises(TypeError):
         ln_dense(x, g, b, w.float(), c)  # fp32 weights
     with pytest.raises(ValueError):
-        ln_dense(x, g, b, w[:, :96].contiguous(), c[:96])  # width not a multiple of 64
+        ln_dense(x, g, b, w[:, :100].contiguous(), c[:100])  # width not a multiple of 8
+    with pytest.raises(ValueError):  # D not a multiple of 8: TMA needs 16-byte rows
+        ln_dense(x[..., :100].contiguous(), g[:100], b[:100], w[:100].contiguous(), c)
+    with pytest.raises(ValueError):
+        ln_dense(x, g, b, (w,) * 4, (c,) * 4)  # four segments
+    with pytest.raises(ValueError):
+        ln_dense(x, g, b, w, c, activation="relu")
     with pytest.raises(TypeError):
         ln_dense(x.to(torch.bfloat16), g, b, w, c)  # a bf16 stream
     with pytest.raises(TypeError):
@@ -416,7 +477,11 @@ def test_tiny_espnet_model_runs_the_kernels(dev, monkeypatch):
 JOINT_SHAPES = [(16, 640, 640, 3001, 3000, "relu", 4), (4, 256, 256, 2182, 0, "tanh", 20),
                 (16, 512, 512, 2179, 0, "tanh", 4), (1, 640, 640, 3001, 3000, "relu", 4),
                 (5, 256, 256, 2182, 0, "tanh", 20), (16, 256, 256, 2182, 2181, "sigmoid", 20),
-                (37, 128, 96, 301, 7, "relu", 5)]
+                (37, 128, 96, 301, 7, "relu", 5),
+                # past the old caps: m = 40 and 64, V = 50,000, H = J = 3,072 (the
+                # depth in two chunks), and widths that are not multiples of 4
+                (16, 3072, 3072, 3001, 3000, "relu", 40), (4, 256, 256, 50000, 0, "tanh", 64),
+                (16, 640, 640, 50000, 49999, "relu", 40), (5, 130, 258, 301, 7, "sigmoid", 5)]
 
 
 def _joint_inputs(dev, r, h, j, v, seed, act="tanh", blank=0, m=1):
@@ -470,19 +535,24 @@ def test_joint_topm_kernel_ties_to_lowest_index(dev, blank):
     assert (got[2][:, 1:] > got[2][:, :-1]).all()  # all tied at 3: increasing columns
 
 
-# (r, h_in, h): nemo ALSD, espnet Graves, ragged R, more rows than a tile
-LSTM_SHAPES = [(16, 640, 640), (4, 256, 256), (1, 640, 640), (5, 256, 256), (37, 128, 384)]
+# (r, h_in, h): nemo ALSD, espnet Graves, ragged R, more rows than a tile,
+# a depth of 3,072 (two chunks) and widths that are not multiples of 4
+LSTM_SHAPES = [(16, 640, 640), (4, 256, 256), (1, 640, 640), (5, 256, 256), (37, 128, 384),
+               (16, 1536, 1536), (5, 1536, 1536), (4, 130, 258)]
 
 
 @pytest.mark.parametrize("r,h_in,h", LSTM_SHAPES)
 def test_lstm_cell_kernel_matches_plain(dev, r, h_in, h):
     """fp32: h' and c' within 1e-5 of the twin (the gate sums in another
     order); also within 1e-5 of torch.lstm_cell, the same cell with the
-    weights as [4H, in]."""
+    weights as [4H, in]. Past a depth of 1,280 (nemo's) the weights shrink
+    by sqrt(1280 / depth), so that the gates keep the spread they have at
+    the paths' shapes."""
     gen = torch.Generator().manual_seed(r + h)
     f32 = torch.float32
-    w_ih, w_hh = _rand(gen, h_in, 4 * h, scale=0.1, dtype=f32), _rand(gen, h, 4 * h, scale=0.1,
-                                                                       dtype=f32)
+    scale = 0.1 * min(1.0, (1280 / (h_in + h)) ** 0.5)
+    w_ih, w_hh = _rand(gen, h_in, 4 * h, scale=scale, dtype=f32), _rand(gen, h, 4 * h, scale=scale,
+                                                                         dtype=f32)
     bias = _rand(gen, 4 * h, scale=0.1, dtype=f32)
     x, hp, cp = _rand(gen, r, h_in, dtype=f32), _rand(gen, r, h, dtype=f32), _rand(gen, r, h,
                                                                                   dtype=f32)
@@ -506,7 +576,9 @@ def test_step_kernels_refuse_bf16_and_bad_inputs(dev):
     with pytest.raises(ValueError, match="float32"):
         joint_topm(*args, 4, 0, activation="tanh", compute_dtype="bfloat16")
     with pytest.raises(ValueError):
-        joint_topm(*args, 40, 0, activation="tanh", compute_dtype="float32")  # m > 32
+        joint_topm(*args, 0, 0, activation="tanh", compute_dtype="float32")  # m < 1
+    with pytest.raises(ValueError):
+        topm_logsoftmax(args[4], 4, 256)  # blank past V
     with pytest.raises(TypeError):
         joint_topm(*args[:5], args[5].to(torch.bfloat16), 4, 0, activation="tanh",
                    compute_dtype="float32")
