@@ -27,8 +27,9 @@ Phases, each of which fails the run (nonzero exit, no result line):
    the LSTM cell at nemo's and espnet's predictors beside torch.lstm_cell;
    then the top-m and step kernels past their former size caps (m = 40,
    V = 50,000, H = J = 3,072, H_in = H = 1,536). The LayerNorm-fused
-   projections (rows 4-5) are also timed with the GEMM's column tile forced
-   to 128 and to 256, beside the bare cuBLAS bf16 product on the same
+   projections (rows 4-5) and the conv module (row 2, at nemo's and
+   espnet's shapes) are also timed with their GEMMs' column tile forced to
+   128 and to 256, beside the bare cuBLAS bf16 products on the same
    operands (a yardstick; the port never calls it);
 4. nemo path: load_model(device="cuda", checkpoint="random") in its GPU
    serving configuration (lnd_impl="pallas": every encoder kernel) at the
@@ -153,12 +154,15 @@ STEP_KERNELS = ("joint_topm", "lstm_cell_step")
 ESPNET_ROWS = ("relpos_attention", "relpos_attention_blockwise", "fused_conv_module_ln_layer",
                "fused_conv_module_layer")
 # published peaks of one H100 SXM (dense, from NVIDIA's H100 datasheet):
-# FLOP/s by operation type and HBM bytes/s. bound_ms is the larger of
-# the bytes a call must move (each input read once, each output written
+# FLOP/s by operation type and HBM bytes/s; "exp", the exponentials of a
+# softmax, at the special-function units' 16 a clock on each of the 132
+# SMs at the 1.98 GHz boost clock (CUDA C++ Programming Guide, arithmetic
+# instruction throughput, compute capability 9.0). bound_ms is the larger
+# of the bytes a call must move (each input read once, each output written
 # once) over HBM_BYTES and its operations of each type over that type's
-# peak (the tensor cores and the CUDA cores run side by side, so the
-# times of two types are not added).
-PEAK_FLOPS = {"bf16": 989e12, "fp32": 67e12}
+# peak (the tensor cores, the CUDA cores and the special-function units run
+# side by side, so the times of two types are not added).
+PEAK_FLOPS = {"bf16": 989e12, "fp32": 67e12, "exp": 132 * 16 * 1.98e9}
 HBM_BYTES = 3.35e12
 
 
@@ -257,21 +261,26 @@ def bound_ms(flops, args, out):
     return max(t_mem, t_ops) * 1e3, ("operations" if t_ops > t_mem else "bytes")
 
 
-def _valid_keys(lengths, t):
-    """Key positions the rows' softmax needs: Σ min(length, T)."""
-    return float(lengths.clamp(max=t).sum().item())
+def _valid_scores(lengths, t):
+    """Scores a softmax row set needs: Σ min(length, T)², the valid query
+    rows times the valid keys (rows past a length are garbage the caller
+    masks, so the function needs none of their work)."""
+    return float(lengths.clamp(max=t).double().square().sum().item())
 
 
 # FLOPs of each kernel's work on its inputs (the products on the tensor
-# cores as bf16, the rest on the CUDA cores as fp32)
+# cores as bf16, the rest on the CUDA cores as fp32, and one exponential a
+# valid score of a softmax)
 def flops_relpos(args, out):  # q·kᵀ, the (q+v)·pos band and p·v, every head
-    _, t, d = out.shape
-    return {"bf16": 2.0 * t * _valid_keys(args[-2], t) * d * 3}
+    d, h = out.shape[-1], args[-1]
+    scores = _valid_scores(args[-2], out.shape[1])
+    return {"bf16": 2.0 * scores * d * 3, "exp": scores * h}
 
 
 def flops_relpos_bhtd(args, out):  # the same three products on [B, H, T, dh]
     _, h, t, dh = out.shape
-    return {"bf16": 2.0 * t * _valid_keys(args[-1], t) * h * dh * 3}
+    scores = _valid_scores(args[-1], t)
+    return {"bf16": 2.0 * scores * h * dh * 3, "exp": scores * h}
 
 
 def flops_conv(args, out):  # GLU and output products, depthwise taps
@@ -308,9 +317,8 @@ def flops_lstm(args, out):  # the gate products, then ~10 operations an element 
 
 def flops_shared(args, out):  # the T² products q·kᵀ, qp·pos and p·v, all bf16 operands
     q, qp, lengths = args[0], args[2], args[5]
-    g, t, qd = q.shape
-    keys = _valid_keys(lengths, t)
-    return {"bf16": 2.0 * t * keys * (qd + qp.shape[-1] + out.shape[-1])}
+    scores = _valid_scores(lengths, q.shape[1])
+    return {"bf16": 2.0 * scores * (q.shape[2] + qp.shape[-1] + out.shape[-1]), "exp": scores}
 
 
 def kernel_checks(dev):
@@ -369,29 +377,54 @@ def bf16_tol(want):
     return 2.0 * 2.0 ** (np.floor(np.log2(want.float().abs().max().item())) - 7)
 
 
-def gemm_yardstick(row, label, xn, w, forced):
-    """Rows 4-5 beside the bare cuBLAS bf16 product xn · w on the same
-    operands (one [D, ΣNi] weight: the q/k/v segments concatenated once,
-    outside the timing), by CUDA events and by profiler device time, into
+def gemm_yardstick(row, label, products, call):
+    """A GEMM-based kernel beside the bare cuBLAS bf16 products on the same
+    operands (``products``, pairs (a, w): rows 4-5's one product, the q/k/v
+    segments concatenated once outside the timing; row 2's x·w_in and
+    y·w_out), by CUDA events and by profiler device time, into
     ``row["cublas_ms"]`` (events) and the log with the ratio the kernel's
-    device time bears to it; then the kernel with its GEMM's column tile
-    forced to 128 and to 256 (``forced(tile_n)``), device and events ms."""
+    device time bears to them; then the kernel (``call()``) with its GEMMs'
+    column tile forced to 128 and to 256, device and events ms."""
     import torch
 
-    def product():
-        return torch.matmul(xn, w)
+    from reazonspeech_tpu_torch.ops._kernels import forced_tile_n
 
-    row["cublas_ms"] = cuda_ms(product, 20)
-    dev_ms = device_ms(product, 20)
+    def cublas():
+        for a, w in products:
+            torch.matmul(a, w)
+
+    row["cublas_ms"] = cuda_ms(cublas, 20)
+    dev_ms = device_ms(cublas, 20)
     ratio = "not measured" if dev_ms is None or row["device_ms"] is None else \
         f"{row['device_ms'] / dev_ms:.2f}x"
-    log(f"{row['name']} ({label}): the bare cuBLAS bf16 product {tuple(xn.shape)} x "
-        f"{tuple(w.shape)}: events ms {row['cublas_ms']:.4f}, device ms {fmt_ms(dev_ms)}; "
-        f"the kernel's device ms {fmt_ms(row['device_ms'])} is {ratio} it (bar 2x)")
+    shapes = " + ".join(f"{tuple(a.shape)} x {tuple(w.shape)}" for a, w in products)
+    log(f"{row['name']} ({label}): the bare cuBLAS bf16 product(s) {shapes}: events ms "
+        f"{row['cublas_ms']:.4f}, device ms {fmt_ms(dev_ms)}; the kernel's device ms "
+        f"{fmt_ms(row['device_ms'])} is {ratio} it (bar 2x)")
     for tile_n in (128, 256):
-        log(f"{row['name']} ({label}), GEMM column tile forced to {tile_n}: device ms "
-            f"{fmt_ms(device_ms(lambda: forced(tile_n), 20))}, events ms "
-            f"{cuda_ms(lambda: forced(tile_n), 20):.4f}")
+        with forced_tile_n(tile_n):
+            log(f"{row['name']} ({label}), GEMM column tile forced to {tile_n}: device ms "
+                f"{fmt_ms(device_ms(call, 20))}, events ms {cuda_ms(call, 20):.4f}")
+
+
+def conv_yardstick(row, label, x, args, kwargs):
+    """Row 2 beside the bare cuBLAS products x·w_in and y·w_out (bf16: x the
+    module input, LayerNormed where the kernel normalizes it; y a random
+    tensor of the depthwise output's shape, as a product's time does not
+    depend on the values), and with both products' column tile forced."""
+    import torch
+
+    from reazonspeech_tpu_torch import ops
+    from reazonspeech_tpu_torch.ops.ln_dense import layer_norm_fp32
+
+    bf16 = torch.bfloat16
+    xn = x if "ln_scale" not in kwargs else \
+        layer_norm_fp32(x, kwargs["ln_scale"], kwargs["ln_bias"]).to(bf16)
+    w_in, w_out = args[2].to(bf16), args[8].to(bf16)
+    y = torch.randn(xn.shape, device=xn.device).to(bf16)
+
+    gemm_yardstick(row, label, [(xn, w_in), (y, w_out)],
+                   lambda: ops.fused_conv_module(x, *args[1:], **kwargs))
 
 
 def bucket_kernel_checks(rand, dev):
@@ -403,7 +436,7 @@ def bucket_kernel_checks(rand, dev):
     import torch
 
     from reazonspeech_tpu_torch import ops
-    from reazonspeech_tpu_torch.ops.ln_dense import _ln_dense_cuda, layer_norm_fp32
+    from reazonspeech_tpu_torch.ops.ln_dense import layer_norm_fp32
 
     f32, bf16, rows = torch.float32, torch.bfloat16, []
     b, t, d, h, k = 4, 401, 1024, 8, 9
@@ -418,8 +451,8 @@ def bucket_kernel_checks(rand, dev):
                          iters=20, kwargs=dict(activation="swish"), label="FFN-in",
                          flops=flops_ln_dense))
     xn = layer_norm_fp32(x, g, beta).to(bf16)
-    gemm_yardstick(rows[-1], "FFN-in", xn, w_ffn,
-                   lambda n: _ln_dense_cuda(x, None, 1.0, g, beta, w_ffn, c_ffn, "swish", 1e-5, n))
+    gemm_yardstick(rows[-1], "FFN-in", [(xn, w_ffn)],
+                   lambda: ops.ln_dense(x, g, beta, w_ffn, c_ffn, activation="swish"))
     # packed q/k/v: three [1024, 1024] segments
     w_qkv = tuple(rand(d, d, scale=0.5 * d ** -0.5) for _ in range(3))
     c_qkv = tuple(rand(d, scale=0.1, dtype=f32) for _ in range(3))
@@ -431,8 +464,8 @@ def bucket_kernel_checks(rand, dev):
                          (x, delta, g, beta, w_qkv, c_qkv), ("bf16", 1e-5), iters=20,
                          kwargs=dict(scale=0.5),
                          flops=lambda a, o: flops_ln_dense(a, o, w_at=4)))
-    gemm_yardstick(rows[-1], "q/k/v", xn, torch.cat(w_qkv, dim=1),
-                   lambda n: _ln_dense_cuda(x, delta, 0.5, g, beta, w_qkv, c_qkv, None, 1e-5, n))
+    gemm_yardstick(rows[-1], "q/k/v", [(xn, torch.cat(w_qkv, dim=1))],
+                   lambda: ops.ln_dense_add(x, delta, g, beta, w_qkv, c_qkv, scale=0.5))
     # the block tail: fp32 LN of r + 0.5·y, ragged lengths
     rows.append(_compare("add_ln", ops.add_ln, ops.add_ln_plain, (x, delta, lengths, g, beta),
                          1e-4, iters=20, kwargs=dict(scale=0.5), flops=flops_add_ln))
@@ -452,10 +485,11 @@ def bucket_kernel_checks(rand, dev):
             rand(d, scale=0.1, dtype=f32), 1.0 + rand(d, scale=0.1, dtype=f32),
             rand(d, scale=0.1, dtype=f32), rand(d, d, scale=d ** -0.5, dtype=f32),
             rand(d, scale=0.1, dtype=f32))
+    conv_kw = dict(ln_scale=g, ln_bias=beta, compute_dtype=bf16)
     rows.append(_compare("fused_conv_module_ln", ops.fused_conv_module,
-                         ops.fused_conv_module_plain, args, 0.03, iters=20,
-                         kwargs=dict(ln_scale=g, ln_bias=beta, compute_dtype=bf16),
+                         ops.fused_conv_module_plain, args, 0.03, iters=20, kwargs=conv_kw,
                          flops=flops_conv))
+    conv_yardstick(rows[-1], "T=401", x, args, conv_kw)
     # lnd_impl="xla": the same conv module on the caller's bf16 LayerNorm
     # output, and attention on separate q, k, v (tolerances as at T=376)
     rows.append(_compare("fused_conv_module", ops.fused_conv_module,
@@ -503,16 +537,16 @@ def shared_attention_checks(rand, dev):
                                           ("stack 3", 32, 200, 12, 8, 20),
                                           ("nonlin stack 0", 4, 1596, 144, 1, 10),
                                           ("nonlin stack 3", 4, 200, 576, 1, 20)):
-        row = _compare("shared_rel_attention", *single, inputs(g, t, dv, heads, ragged(g, t)),
-                       SHARED_ATOL, iters=iters, kwargs=dict(heads=heads), label=label,
-                       flops=flops_shared)
+        args = inputs(g, t, dv, heads, ragged(g, t))
+        row = _compare("shared_rel_attention", *single, args, SHARED_ATOL, iters=iters,
+                       kwargs=dict(heads=heads), label=label, flops=flops_shared)
         rows += [row] if label == "stack 0" else []
     for label, g, dv, heads in (("T=3196", 4, 12, 4), ("nonlin T=3196", 1, 144, 1)):
+        args = inputs(g, 3196, dv, heads, ragged(g, 3196) if g > 1 else [3196])
         row = _compare("shared_rel_attention_blockwise", ops.shared_rel_attention_blockwise,
-                       ops.shared_rel_attention_blockwise_plain,
-                       inputs(g, 3196, dv, heads, ragged(g, 3196) if g > 1 else [3196]),
-                       SHARED_ATOL, iters=5, label=label, flops=flops_shared,
-                       kwargs=dict(heads=heads), plain_kwargs=dict(block=64))
+                       ops.shared_rel_attention_blockwise_plain, args, SHARED_ATOL, iters=5,
+                       label=label, flops=flops_shared, kwargs=dict(heads=heads),
+                       plain_kwargs=dict(block=64))
         rows += [row] if label == "T=3196" else []
     return rows
 
@@ -566,10 +600,11 @@ def espnet_kernel_checks(rand, dev):
                1.0 + rand(d, scale=0.1, dtype=f32), rand(d, scale=0.1, dtype=f32),
                rand(d, d, scale=d ** -0.5, dtype=f32), rand(d, scale=0.1, dtype=f32))
     # bf16 out, fp32 inside: as the folded forms, a few bf16 ulps
+    conv_kw = dict(norm="layer", ln_scale=g, ln_bias=beta, compute_dtype=bf16)
     rows.append(_compare("fused_conv_module_ln_layer", ops.fused_conv_module,
                          ops.fused_conv_module_plain, (x, lengths) + weights, 0.03, iters=20,
-                         kwargs=dict(norm="layer", ln_scale=g, ln_bias=beta, compute_dtype=bf16),
-                         label="T=549, D=512, K=31", flops=flops_conv))
+                         kwargs=conv_kw, label="T=549, D=512, K=31", flops=flops_conv))
+    conv_yardstick(rows[-1], "T=549, D=512, K=31", x, (x, lengths) + weights, conv_kw)
     from reazonspeech_tpu_torch.ops.ln_dense import layer_norm_fp32
 
     xn = layer_norm_fp32(x, g, beta).to(bf16)

@@ -16,16 +16,25 @@
 //   wgmma.m64nBNk16 on it, keeps one k-step's products in flight and frees
 //   the stage before (all 256 consumer threads arrive on its "empty"
 //   barrier) once their products are done. After the last k-step the
-//   caller's epilogue turns each accumulator into an output value with a
+//   caller's epilogue turns the accumulators into output values with a
 //   per-column fp32 value (the bias: read from global memory when the tile
-//   starts, staged in shared memory for the epilogue), and the warpgroup
-//   writes the values as bf16 into its own 64 x BN staging tile in shared
-//   memory; one thread then hands that tile to TMA stores (asynchronous:
-//   the warpgroup goes on to the next tile's products while they drain)
-//   and, before the tile after, waits until the stores have read it. At the
-//   nemo FFN-in shape, stores from the registers straight to global memory
-//   (4 bytes a thread, scattered over 8 rows a warp) took longer than the
-//   products, and so did the bias read from global memory in the epilogue.
+//   starts, staged in shared memory for the epilogue) and, in the paired
+//   form, a per-row value (a length mask), and the warpgroup writes them in
+//   the epilogue's output type (bf16 or fp32) into its own 64-row staging
+//   tile in shared memory; one thread then hands that tile to TMA stores
+//   (asynchronous: the warpgroup goes on to the next tile's products while
+//   they drain) and, before the tile after, waits until the stores have read
+//   it. At the nemo FFN-in shape, stores from the registers straight to
+//   global memory (4 bytes a thread, scattered over 8 rows a warp) took
+//   longer than the products, and so did the bias read from global memory in
+//   the epilogue.
+//
+// The paired form (the GLU of the conv module): the B tile holds BN / 2
+// columns of one operand and the same BN / 2 columns of a second one (two
+// tensor maps, e.g. the value and gate halves of one [D, 2D] weight), so
+// that a consumer thread holds accumulator column c and its partner c + BN / 2
+// (wgmma fragment groups j and j + BN / 16) and the epilogue combines them in
+// registers into BN / 2 output columns.
 //
 // Shared memory: both operands arrive with the 128-byte swizzle, in boxes
 // 64 bf16 (128 bytes) wide: A as [BM][64] (K-major: the k-th 16-column slice
@@ -33,7 +42,9 @@
 // (MN-major: the descriptor's leading byte offset steps from one 64-column
 // box to the next, its stride byte offset from one group of 8 k-rows to the
 // next). The staging tiles use the same swizzle (conflict-free writes from
-// wgmma's fragment). Ragged edges cost nothing here: each tensor map
+// wgmma's fragment), in boxes of 128-byte rows: [64][64] bf16 or [64][32]
+// fp32; a consumer's 64 x BN bf16 tile and its 64 x BN / 2 fp32 paired tile
+// take the same bytes. Ragged edges cost nothing here: each tensor map
 // carries its true extent, TMA loads fill the rows and columns past it
 // with zeros and TMA stores leave them out.
 //
@@ -63,7 +74,7 @@ struct Config {
   static constexpr int B_BYTES = BK * BN * 2;
   static constexpr int STAGE_BYTES = A_BYTES + B_BYTES;
   static constexpr int STAGES = 160 * 1024 / STAGE_BYTES;  // 5 at BN = 128, 3 at 256
-  static constexpr int OUT_BYTES = 64 * BN * 2;            // a consumer's bf16 staging tile
+  static constexpr int OUT_BYTES = 64 * BN * 2;  // a consumer's staging tile (64 x BN bf16)
   // 1024 bytes of slack to align the ring (the swizzle repeats every 1024
   // bytes), the ring, two staging tiles and two tiles' column values, a
   // "full" and an "empty" barrier a stage
@@ -242,25 +253,50 @@ struct Tile {
   int m0, b, n0;
 };
 
+// output columns c and c + 1 (c even) of row r into a staging tile of
+// 128-byte swizzled boxes [64][128 / sizeof(Out)]
+template <typename Out>
+__device__ __forceinline__ void stage_pair(unsigned char* tile, int r, int c, float v0, float v1) {
+  constexpr int BOXC = 128 / sizeof(Out);
+  const int byte = (c % BOXC) * static_cast<int>(sizeof(Out));
+  unsigned char* p =
+      tile + (c / BOXC) * (64 * 128) + r * 128 + (((byte >> 4) ^ (r % 8)) << 4) + (byte & 15);
+  if constexpr (sizeof(Out) == 4)
+    *reinterpret_cast<float2*>(p) = make_float2(v0, v1);
+  else
+    *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(v0, v1);
+}
+
 // The persistent GEMM. ``sched.tiles()`` output tiles, tile t at
 // ``sched(t)``; block i takes tiles i, i + gridDim.x, ... . ``a`` maps A
-// ([M, K], boxes of [BM][BOX]), ``b[tile.b]`` maps B ([K, N], boxes of
-// [BK][BOX]), ``out[tile.b]`` the bf16 output ([M, N], boxes of [64][BOX]),
-// all 128-byte swizzled; ``k_tiles`` = ceil(K / BK), ``M`` the rows.
-// ``epilogue.column(tile, col)`` is the fp32 value of column col of B
-// operand tile.b (0 past its width), ``epilogue(v, c)`` the output value of
-// an accumulator v in a column of value c, ``epilogue.cols(tile)`` the
-// operand's width. Launch with NT threads and Config<BN>::SMEM_BYTES of
-// dynamic shared memory.
+// ([M, K], boxes of [BM][BOX]), ``out[tile.b]`` the output ([M, N] of
+// Epilogue::Out, boxes of [64][128 / sizeof(Out)]), all 128-byte swizzled;
+// ``k_tiles`` = ceil(K / BK), ``M`` the rows. B ([K, N], boxes of [BK][BOX]):
+// ``b[tile.b]`` holds the tile's BN columns from tile.n0, or, with
+// Epilogue::PAIRED, ``b[2·tile.b]`` its first BN / 2 columns and
+// ``b[2·tile.b + 1]`` its last BN / 2, both from tile.n0. The epilogue:
+// ``column(tile, i)`` the fp32 value of the tile's B column i (0 <= i < BN;
+// 0 past the operand's width), ``cols(tile)`` the output's width; unpaired,
+// ``epilogue(v, c)`` the output of accumulator v in a column of value c, an
+// output tile of BN columns; paired, ``row(m)`` a value of output row m and
+// ``epilogue(a, ca, g, cg, r)`` the output from accumulator a of B column i
+// < BN / 2 and g of column i + BN / 2 (values ca, cg) on a row of value r,
+// an output tile of BN / 2 columns. Launch with NT threads and
+// Config<BN>::SMEM_BYTES of dynamic shared memory.
 template <int BN, class Sched, class Epilogue>
 __device__ __forceinline__ void gemm_persistent(const CUtensorMap* a, const CUtensorMap* b,
                                                 const CUtensorMap* out, int k_tiles, int M,
                                                 const Sched& sched, const Epilogue& epilogue) {
   using C = Config<BN>;
+  using Out = typename Epilogue::Out;
+  constexpr bool PAIRED = Epilogue::PAIRED;
+  constexpr int OUT_COLS = PAIRED ? BN / 2 : BN;  // output columns of a tile
+  constexpr int BOXC = 128 / sizeof(Out);         // output columns of a 128-byte box
+  static_assert(64 * OUT_COLS * sizeof(Out) == C::OUT_BYTES, "staging tile size");
   extern __shared__ unsigned char smem_raw[];
   unsigned char* ring = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
-  unsigned char* staging = ring + C::STAGES * C::STAGE_BYTES;  // two [BN / 64][64][64] tiles
+  unsigned char* staging = ring + C::STAGES * C::STAGE_BYTES;  // two 64-row tiles
   float* columns = reinterpret_cast<float*>(staging + 2 * C::OUT_BYTES);  // two [BN]
   uint64_t* full = reinterpret_cast<uint64_t*>(columns + 2 * BN);
   uint64_t* empty = full + C::STAGES;
@@ -286,9 +322,12 @@ __device__ __forceinline__ void gemm_persistent(const CUtensorMap* a, const CUte
           mbar_expect_tx(&full[stage], C::STAGE_BYTES);
           tma_load(st, a, &full[stage], kt * BK, tile.m0);
 #pragma unroll
-          for (int h = 0; h < BN / BOX; ++h)
-            tma_load(st + C::A_BYTES + h * BK * BOX * 2, b + tile.b, &full[stage],
-                     tile.n0 + h * BOX, kt * BK);
+          for (int h = 0; h < BN / BOX; ++h) {
+            constexpr int HALF = BN / (2 * BOX);  // boxes of one operand in the paired form
+            const CUtensorMap* map = PAIRED ? b + 2 * tile.b + h / HALF : b + tile.b;
+            const int col = tile.n0 + (PAIRED ? h % HALF : h) * BOX;
+            tma_load(st + C::A_BYTES + h * BK * BOX * 2, map, &full[stage], col, kt * BK);
+          }
           if (++stage == C::STAGES) {
             stage = 0;
             phase ^= 1;
@@ -307,7 +346,7 @@ __device__ __forceinline__ void gemm_persistent(const CUtensorMap* a, const CUte
       const Tile tile = sched(t);
       float column[BN / 128];  // read now, used after the products
 #pragma unroll
-      for (int i = 0; i < BN / 128; ++i) column[i] = epilogue.column(tile, tile.n0 + t128 + 128 * i);
+      for (int i = 0; i < BN / 128; ++i) column[i] = epilogue.column(tile, t128 + 128 * i);
       float acc[C::ACC];
 #pragma unroll
       for (int i = 0; i < C::ACC; ++i) acc[i] = 0.0f;
@@ -345,27 +384,43 @@ __device__ __forceinline__ void gemm_persistent(const CUtensorMap* a, const CUte
       named_sync(1 + cw, 128);
       // accumulator i holds row 16·warp + lane / 4 + 8·((i / 2) % 2) and
       // column 8·(i / 4) + 2·(lane % 4) + i % 2 of the warpgroup's 64 x BN
-      // (wgmma's f32 fragment); in the staging tile, row r of 64-column box
-      // x sits at x·8 KB + r·128 bytes, its 16-byte chunks swizzled by r % 8
+      // (wgmma's f32 fragment): fragment group j = i / 4 covers columns
+      // 8j .. 8j + 7, and in the paired form group j + BN / 16 holds the
+      // partners of group j's columns
       const int r0 = 16 * (t128 / 32) + lane / 4, q = lane % 4;
+      if constexpr (PAIRED) {
+        const int m = tile.m0 + 64 * cw + r0;
+        const float rv[2] = {epilogue.row(m), epilogue.row(m + 8)};
 #pragma unroll
-      for (int j = 0; j < BN / 8; ++j) {
-        const float2 c = *reinterpret_cast<const float2*>(my_columns + 8 * j + 2 * q);
-        unsigned char* box = my_out + (j / 8) * (64 * 128);
-        const int chunk = ((j % 8) ^ (r0 % 8)) * 16 + q * 4;
-        *reinterpret_cast<__nv_bfloat162*>(box + r0 * 128 + chunk) =
-            __floats2bfloat162_rn(epilogue(acc[4 * j], c.x), epilogue(acc[4 * j + 1], c.y));
-        *reinterpret_cast<__nv_bfloat162*>(box + (r0 + 8) * 128 + chunk) = __floats2bfloat162_rn(
-            epilogue(acc[4 * j + 2], c.x), epilogue(acc[4 * j + 3], c.y));
+        for (int j = 0; j < BN / 16; ++j) {
+          const int c = 8 * j + 2 * q, p = 4 * (j + BN / 16);
+          const float2 ca = *reinterpret_cast<const float2*>(my_columns + c);
+          const float2 cg = *reinterpret_cast<const float2*>(my_columns + BN / 2 + c);
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+            stage_pair<Out>(my_out, r0 + 8 * h, c,
+                            epilogue(acc[4 * j + 2 * h], ca.x, acc[p + 2 * h], cg.x, rv[h]),
+                            epilogue(acc[4 * j + 2 * h + 1], ca.y, acc[p + 2 * h + 1], cg.y, rv[h]));
+        }
+      } else {
+#pragma unroll
+        for (int j = 0; j < BN / 8; ++j) {
+          const int c = 8 * j + 2 * q;
+          const float2 cv = *reinterpret_cast<const float2*>(my_columns + c);
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+            stage_pair<Out>(my_out, r0 + 8 * h, c, epilogue(acc[4 * j + 2 * h], cv.x),
+                            epilogue(acc[4 * j + 2 * h + 1], cv.y));
+        }
       }
       fence_async_smem();
       named_sync(1 + cw, 128);
       const int row = tile.m0 + 64 * cw, cols = epilogue.cols(tile);
       if (t128 == 0 && row < M) {
 #pragma unroll
-        for (int h = 0; h < BN / BOX; ++h)
-          if (tile.n0 + h * BOX < cols)
-            tma_store(out + tile.b, my_out + h * (64 * 128), tile.n0 + h * BOX, row);
+        for (int h = 0; h < OUT_COLS / BOXC; ++h)
+          if (tile.n0 + h * BOXC < cols)
+            tma_store(out + tile.b, my_out + h * (64 * 128), tile.n0 + h * BOXC, row);
         tma_store_commit();
       }
     }
@@ -400,23 +455,49 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
-// The tensor map of a row-major [rows, cols] bf16 matrix with a row stride
-// of ``ld`` elements (cols and ld multiples of 8: TMA needs 16-byte strides),
-// in boxes of [box_rows][BOX], 128-byte swizzled; past its edges TMA reads
-// zeros. Returns 0 or a CUDA error.
+// The tensor map of a row-major [rows, cols] matrix of bf16 (``f32``
+// false) or fp32 elements with a row stride of ``ld`` elements (ld and the
+// base 16-byte aligned: TMA needs 16-byte strides), in boxes of
+// [box_rows][128 bytes], 128-byte swizzled; past its edges TMA reads zeros
+// and stores nothing. Returns 0 or a CUDA error.
 inline int encode_map(CUtensorMap* map, const void* base, int rows, int cols, int ld,
-                      int box_rows) {
+                      int box_rows, bool f32 = false) {
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  const int elem = f32 ? 4 : 2;
   const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(ld) * 2};
-  const cuuint32_t box[2] = {BOX, static_cast<cuuint32_t>(box_rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(ld) * elem};
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(128 / elem),
+                             static_cast<cuuint32_t>(box_rows)};
   const cuuint32_t unit[2] = {1, 1};
-  const CUresult res =
-      encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims, strides, box,
-             unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  const CUresult res = encode(
+      map, f32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+      const_cast<void*>(base), dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return res == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
+// tile-columns of work in whole waves over ``sms`` SMs: ceil(tiles / sms)
+// x bn, the rule that picks a GEMM's column tile (the wider one on a tie)
+inline int wave_cost(int tiles, int bn, int sms) { return (tiles + sms - 1) / sms * bn; }
+
+// The column tile every GEMM of the library launches with when forced (128
+// or 256; 0: chosen per shape), set by rs_gemm_force_tile_n for tests and
+// timing. Inline: one variable for all the sources that include this.
+inline int g_force_tile_n = 0;
+
+// the forced column tile, else 256 unless 128 costs fewer whole waves
+inline int pick_tile_n(int cost256, int cost128) {
+  return g_force_tile_n ? g_force_tile_n : (cost256 <= cost128 ? 256 : 128);
+}
+
+inline int sm_count() {
+  int dev = 0, sms = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+    return 0;
+  return sms;
 }
 
 }  // namespace sm90

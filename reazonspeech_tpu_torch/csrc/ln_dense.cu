@@ -95,9 +95,12 @@ struct Schedule {  // tile t: row tile t % m_tiles, then the segments' column ti
 // rounding that follows.
 template <bool SWISH>
 struct DenseEpilogue {
+  static constexpr bool PAIRED = false;
+  typedef bf16 Out;
   const DenseParams& p;
   __device__ int cols(const Tile& tile) const { return p.n[tile.b]; }
-  __device__ float column(const Tile& tile, int col) const {
+  __device__ float column(const Tile& tile, int i) const {
+    const int col = tile.n0 + i;
     return col < p.n[tile.b] ? __ldg(p.c[tile.b] + col) : 0.0f;
   }
   __device__ float operator()(float v, float bias) const {
@@ -128,26 +131,25 @@ int launch_dense(DenseParams& p, int sms, cudaStream_t s) {
   RS_RETURN_LAST_ERROR();
 }
 
-// tile-columns of work in whole waves: ceil(tiles / sms) x bn
+// tile-columns of work in whole waves (rs::sm90::wave_cost) over every segment
 int wave_cost(const DenseParams& p, int bn, int sms) {
   int tiles = 0;
   for (int i = 0; i < MAX_SEG; ++i) tiles += p.m_tiles * ((p.n[i] + bn - 1) / bn);
-  return (tiles + sms - 1) / sms * bn;
+  return rs::sm90::wave_cost(tiles, bn, sms);
 }
 
 // launch (1) with or without the residual add, then launch (2) with a
-// column tile of ``tile_n`` (128 or 256; 0: by wave_cost)
+// column tile by wave_cost (rs::sm90::pick_tile_n)
 int ln_dense_impl(const float* x, const bf16* delta, float scale, const float* g, const float* b,
                   const Segments& seg, bf16* xn, float* stream_out, bf16* out, int M, int D,
-                  int swish, float eps, int tile_n, cudaStream_t s) {
+                  int swish, float eps, cudaStream_t s) {
   int N = 0;
   for (int i = 0; i < MAX_SEG; ++i) {
     if (seg.n[i] < 0 || seg.n[i] % ALIGN != 0) return static_cast<int>(cudaErrorInvalidValue);
     if (seg.n[i] > 0 && (i > 0 && seg.n[i - 1] == 0)) return static_cast<int>(cudaErrorInvalidValue);
     N += seg.n[i];
   }
-  if (M <= 0 || D <= 0 || D % ALIGN != 0 || N == 0 || (tile_n != 0 && tile_n != 128 &&
-                                                        tile_n != 256))
+  if (M <= 0 || D <= 0 || D % ALIGN != 0 || N == 0)
     return static_cast<int>(cudaErrorInvalidValue);
   int err = launch_ln_rows<bf16, false>(x, delta, scale, g, b, stream_out, xn, nullptr, M, M, D,
                                         eps, s);
@@ -166,11 +168,9 @@ int ln_dense_impl(const float* x, const bf16* delta, float scale, const float* g
   p.M = M;
   p.m_tiles = (M + rs::sm90::BM - 1) / rs::sm90::BM;
   p.k_tiles = (D + rs::sm90::BK - 1) / rs::sm90::BK;
-  int dev = 0, sms = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess ||
-      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
-    return static_cast<int>(cudaGetLastError());
-  const int bn = tile_n ? tile_n : (wave_cost(p, 256, sms) <= wave_cost(p, 128, sms) ? 256 : 128);
+  const int sms = rs::sm90::sm_count();
+  if (sms == 0) return static_cast<int>(cudaGetLastError());
+  const int bn = rs::sm90::pick_tile_n(wave_cost(p, 256, sms), wave_cost(p, 128, sms));
   if (bn == 256)
     return swish ? launch_dense<256, true>(p, sms, s) : launch_dense<256, false>(p, sms, s);
   return swish ? launch_dense<128, true>(p, sms, s) : launch_dense<128, false>(p, sms, s);
@@ -195,15 +195,15 @@ Segments segments(const void* w0, const void* w1, const void* w2, const void* c0
 
 // x [M, D] fp32; g, b [D] fp32; segment i: w_i [D, n_i] bf16, c_i [n_i] fp32
 // (n_i = 0 and null pointers past the last); xn a [M, D] bf16 scratch;
-// out [M, n_0 + n_1 + n_2] bf16; tile_n 0 (chosen per shape), 128 or 256
+// out [M, n_0 + n_1 + n_2] bf16
 extern "C" int rs_ln_dense(const void* x, const void* g, const void* b, const void* w0,
                            const void* w1, const void* w2, const void* c0, const void* c1,
                            const void* c2, int n0, int n1, int n2, void* xn, void* out, int M,
-                           int D, int swish, float eps, int tile_n, void* stream) {
+                           int D, int swish, float eps, void* stream) {
   return ln_dense_impl(static_cast<const float*>(x), nullptr, 0.0f, static_cast<const float*>(g),
                        static_cast<const float*>(b),
                        segments(w0, w1, w2, c0, c1, c2, n0, n1, n2), static_cast<bf16*>(xn),
-                       nullptr, static_cast<bf16*>(out), M, D, swish, eps, tile_n,
+                       nullptr, static_cast<bf16*>(out), M, D, swish, eps,
                        static_cast<cudaStream_t>(stream));
 }
 
@@ -213,12 +213,12 @@ extern "C" int rs_ln_dense_add(const void* r, const void* delta, const void* g, 
                                const void* w0, const void* w1, const void* w2, const void* c0,
                                const void* c1, const void* c2, int n0, int n1, int n2,
                                void* xn, void* stream_out, void* out, int M, int D, int swish,
-                               float scale, float eps, int tile_n, void* stream) {
+                               float scale, float eps, void* stream) {
   return ln_dense_impl(static_cast<const float*>(r), static_cast<const bf16*>(delta), scale,
                        static_cast<const float*>(g), static_cast<const float*>(b),
                        segments(w0, w1, w2, c0, c1, c2, n0, n1, n2), static_cast<bf16*>(xn),
                        static_cast<float*>(stream_out), static_cast<bf16*>(out), M, D, swish,
-                       eps, tile_n, static_cast<cudaStream_t>(stream));
+                       eps, static_cast<cudaStream_t>(stream));
 }
 
 // out [B, T, D] fp32 = LN(r + scale·y), zero on rows t >= lengths[b];

@@ -1,100 +1,17 @@
-// Shared building blocks of the port's GEMM and LayerNorm kernels
-// (plain C interface, no PyTorch headers).
-//
-// GEMM tiles: a 64x64 output tile per block of 4 warps (2x2, each warp owns
-// a 32x32 quadrant) on the tensor cores through nvcuda::wmma, bf16 16x16x16
-// fragments with fp32 accumulators, K-steps of 32 staged through shared
-// memory, not pipelined. Used only by conformer_conv.cu (the GLU and output
-// products) until it moves onto gemm_sm90.cuh's TMA + wgmma mainloop, which
-// ln_dense.cu's projections use.
-//
-// LayerNorm rows: ln_rows_kernel, fp32 mean and variance over D (the JAX
+// The LayerNorm row kernel of the port (plain C interface, no PyTorch
+// headers): ln_rows_kernel, fp32 mean and variance over D (the JAX
 // kernels' chain: mean, centred second moment, rsqrt(var + eps), then the
-// affine), which writes one normalized row per warp,
-// optionally after a residual add (x = r + scale·delta) and with rows past
-// an utterance's length written as zeros (ln_dense.cu's launch (1) and
-// add_ln, and the conv module's in-kernel LayerNorm).
+// affine), which writes one normalized row per warp, optionally after a
+// residual add (x = r + scale·delta) and with rows past an utterance's
+// length written as zeros (ln_dense.cu's launch (1) and add_ln, and the
+// conv module's in-kernel LayerNorm). The GEMMs are gemm_sm90.cuh's.
 #pragma once
-
-#include <mma.h>
 
 #include "common.cuh"
 
 namespace rs {
 
 typedef __nv_bfloat16 bf16;
-
-namespace gemm {
-
-constexpr int GM = 64, GN = 64, GK = 32;  // output tile and K-step
-constexpr int NT = 128;                   // 4 warps, 2x2 over the output tile
-constexpr int LDA = GK + 8;               // bf16 strides: 16-B rows, wmma ldm % 8 == 0
-constexpr int LDB = GN + 8;
-constexpr int LDC = GN + 4;  // fp32 output tile stride
-constexpr int PER_THREAD = GM * GN / NT;  // epilogue elements per thread
-
-typedef nvcuda::wmma::fragment<nvcuda::wmma::matrix_a, 16, 16, 16, bf16,
-                               nvcuda::wmma::row_major> FragA;
-typedef nvcuda::wmma::fragment<nvcuda::wmma::matrix_b, 16, 16, 16, bf16,
-                               nvcuda::wmma::row_major> FragB;
-typedef nvcuda::wmma::fragment<nvcuda::wmma::accumulator, 16, 16, 16, float> FragC;
-
-// rows m0..m0+GM (zero past M), columns k0..k0+GK of a row-major [M, lda] bf16 matrix
-__device__ __forceinline__ void load_a(bf16* dst, const bf16* x, int lda, int M, int m0, int k0) {
-  for (int i = threadIdx.x; i < GM * GK / 8; i += NT) {
-    const int r = i / (GK / 8), c = (i % (GK / 8)) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (m0 + r < M) val = *reinterpret_cast<const uint4*>(x + size_t(m0 + r) * lda + k0 + c);
-    *reinterpret_cast<uint4*>(dst + r * LDA + c) = val;
-  }
-}
-
-// rows k0..k0+GK, columns col0..col0+GN of a row-major [*, ldw] bf16 matrix
-__device__ __forceinline__ void load_b(bf16* dst, const bf16* w, int ldw, int k0, int col0) {
-  for (int i = threadIdx.x; i < GK * GN / 8; i += NT) {
-    const int r = i / (GN / 8), c = (i % (GN / 8)) * 8;
-    *reinterpret_cast<uint4*>(dst + r * LDB + c) =
-        *reinterpret_cast<const uint4*>(w + size_t(k0 + r) * ldw + col0 + c);
-  }
-}
-
-__device__ __forceinline__ void zero(FragC (&acc)[2][2]) {
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) nvcuda::wmma::fill_fragment(acc[i][j], 0.0f);
-}
-
-// acc += A[warp rows, :GK] · B[:GK, warp cols]; the warp owns a 32x32 quadrant
-__device__ __forceinline__ void mma_tile(const bf16* a, const bf16* b, FragC (&acc)[2][2],
-                                         int wm, int wn) {
-#pragma unroll
-  for (int kk = 0; kk < GK; kk += 16) {
-    FragA fa[2];
-    FragB fb[2];
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-      nvcuda::wmma::load_matrix_sync(fa[i], a + (wm * 32 + i * 16) * LDA + kk, LDA);
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-      nvcuda::wmma::load_matrix_sync(fb[j], b + kk * LDB + wn * 32 + j * 16, LDB);
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < 2; ++j) nvcuda::wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
-  }
-}
-
-__device__ __forceinline__ void store_tile(float* c, FragC (&acc)[2][2], int wm, int wn) {
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-      nvcuda::wmma::store_matrix_sync(c + (wm * 32 + i * 16) * LDC + wn * 32 + j * 16,
-                                      acc[i][j], LDC, nvcuda::wmma::mem_row_major);
-}
-
-}  // namespace gemm
 
 // W consecutive elements at p as fp32 (W = 4: one 16-byte load of fp32,
 // one 8-byte load of bf16), and their store

@@ -15,11 +15,10 @@
 // The two entries differ where they round, as the TPU kernels do:
 // - rs_shared_rel_attention (single pass on the TPU, the whole key range in
 //   VMEM): probabilities normalised in fp32, cast to bf16, then ·v. Hopper
-//   has no room for a [64, T] fp32 score block at T = 2048 beside the value
-//   tiles, so this entry sweeps the keys twice: the first sweep keeps only
-//   the running row max and sum, the second forms p = exp(s - m) / l, casts
-//   it to bf16 and accumulates p·v. Scores are recomputed, which is cheap
-//   (qd = 32, pd = 4).
+//   has no room for a [T, T] score block, so this entry sweeps the keys
+//   twice: the first sweep keeps only the running row max and sum, the
+//   second forms p = exp(s - m) / l, casts it to bf16 and accumulates p·v.
+//   Scores are recomputed, which is cheap (qd = 32, pd = 4).
 // - rs_shared_rel_attention_blockwise (streamed KV on the TPU): one sweep
 //   with an online softmax over 64-key tiles: running max and sum in fp32,
 //   unnormalised p cast to bf16 for p·v, the accumulator rescaled per tile
@@ -29,293 +28,457 @@
 //
 // What bounds it on the H100: at the k2 main path's stack-0 shape (G = 16,
 // T = 1596, qd = 32, pd = 4, dv = 12) one application does ~3.9 GFLOP of
-// T² products (q·kᵀ, the position term, p·v) against ~5 MB of q/k/qp/v/out:
-// ~4 µs of bf16 tensor-core time against ~1.6 µs of HBM time, so the bound
-// is the operations; the nonlin application (G = 4, dv = 144 .. 576) does
-// more p·v work per byte still. What bounds this version is latency: per
-// key tile, four block-wide barriers between the tensor-core products (S =
-// q·kᵀ and O += P·V through nvcuda::wmma, bf16 in, fp32 out) and the
-// softmax on the CUDA cores, and the score and output tiles round-tripping
-// through shared memory.
+// T² products (q·kᵀ, the position term, p·v) against ~5 MB of q/k/qp/v/out,
+// ~4 us of tensor-core time; but the softmax takes one exponential a score,
+// 40.8 M scores, and the SMs' special-function units do 16 a clock each
+// (~4.2e12 a second): ~10 us a sweep, ~20 us for the single-pass entry's
+// two. The position term (pd FMAs a score), the scaling, max and sum are
+// ~12 more instructions a score on the CUDA cores, so the floor is the
+// issue of those, not the tensor cores or the bytes.
 //
-// Design: one block of 8 warps per (64 query rows, row g, chunk of value
-// columns). The position term has pd = 4, so it is 4 FMAs per score on the
-// CUDA cores: the TPU's strided lane rotate (pltpu.roll with stride=1) is
-// not needed. For query rows t0..t0+63 and keys s0..s0+63 the table rows
-// T-1-t+s form one band of 127 rows starting at T-1-(t0+63)+s0; the band is
-// staged in shared memory (fp32, transposed so that the 32 lanes of a warp
-// read 32 banks) and score (r, c) reads band row 63-r+c. Each thread owns
-// one query row's quarter for the softmax and keeps that row's qp in
-// registers. dv = 12 is zero-padded to one 16-column tensor-core tile; wider
-// value sets (the nonlin attention's 3/4·D) go in chunks of 192 columns, one
-// chunk per block (grid z), each chunk recomputing the scores. qd (8 to
-// 32, a multiple of 8) is zero-padded to 32 columns. The output accumulator lives in shared
-// memory in fp32, because a wmma accumulator's element layout is opaque and
-// the streamed entry rescales its rows. Edges: query rows past T read zeros
-// and are not written; keys past T are excluded (-inf), keys in
-// [length, T) score -1e30; key tiles wholly past the length are skipped
-// (their probabilities are exactly 0), except when the length is 0, where
-// every key scores -1e30 as in the JAX kernel.
-
-#include <mma.h>
+// Design: everything per score stays in registers. A block of 4 warps
+// takes 16 query rows a warp of one row g (and one chunk of value columns)
+// and sweeps the keys in 64-key tiles. 4 warps share each K, V and band tile
+// among 64 rows; blocks of 1 or 2 warps would fill more SMs at small G·T,
+// but timed slower at every shape of the k2 path, stack 3's 128 blocks and
+// the nonlin T=3196's 50 included (PERF.md §6). Each warp computes S = q·kᵀ with
+// mma.sync.m16n8k16 (bf16 in, fp32 accumulators; q's A fragments loaded
+// once, K's B fragments by ldmatrix; qd zero-padded to 32), adds the
+// position term qp[t]·pos[T-1-t+s'] by FMAs into the score registers from a
+// staged band of 16·warps + 63 table rows (fp32, [band row][pd padded to 4
+// or 8], so pd = 4 is one 16-byte load; a thread's rows t and t+8 read the
+// same band rows one n-tile apart, so each loaded row serves two scores),
+// and folds log2(e) into the scale, so that an exponential is one FFMA and
+// one ex2.approx. A row's scores lie on the 4 threads of a quad: its max
+// and sum take two shuffles each. The fp32 score fragments of two adjacent
+// key n-tiles are exactly the A fragment of a k16 step of P·V, so p is
+// rounded to bf16 in registers and multiplied by V's B fragments
+// (ldmatrix.trans) into O accumulators that never leave the registers
+// (dv = 12 padded to 16: two n8 tiles; wider value sets in chunks of 192
+// columns over the grid). K and V tiles arrive by cp.async into two
+// shared-memory stages and the band through registers, so tile i+1 loads
+// while tile i computes; the one block-wide barrier a tile is the buffer
+// hand-off. Every loop bound is a compile-time constant (a runtime one
+// turns the unrolled score loops into integer bookkeeping), and the position
+// term goes into the accumulators before the products add to them, so its
+// FMAs never wait on the tensor cores. What holds this version back
+// (PERF.md §6): the grid has G·T/16 warps, ~12 an SM at stack 0 (registers
+// allow 16), too few to hide the latency of the ldmatrix -> mma -> FMA ->
+// max -> shuffle -> exp chain of a tile, so the SMs issue far below their
+// rate; the scores (mma and position term) take the larger part of the
+// time, the exponentials a small one. Edges: query rows past T read zeros and
+// are not written; keys past T are excluded; keys in [length, T) are
+// excluded too (the JAX kernel's -1e30 gives them p = 0 exactly, as
+// length >= 1 leaves a finite row max), and key tiles wholly past the
+// length are skipped; a length of 0 gives every key in [0, T) the same
+// score, as the JAX kernel's -1e30 everywhere does (a uniform row).
 
 #include "common.cuh"
-
-using namespace nvcuda;
 
 namespace {
 
 typedef __nv_bfloat16 bf16;
 
-constexpr int BQ = 64;      // query rows per block
-constexpr int BK = 64;      // keys per tile
-constexpr int NT = 256;     // 8 warps: 4 row blocks of 16 x 2 column halves
-constexpr int NBAND = 128;  // position band rows staged per tile (127 used)
-constexpr int PDMAX = 8;    // largest position-query width
-constexpr float MASK_SCORE = -1.0e30f;
+constexpr int QW = 4;                // warps a block (16 query rows each)
+constexpr int NT = 32 * QW;          // threads a block
+constexpr int BQ = 16 * QW;          // query rows a block
+constexpr int KT = 64;               // keys a tile
+constexpr int NJ = KT / 8;           // score n-tiles of a warp's tile
+constexpr int QDP = 32;              // q/k width, zero-padded
+constexpr int LDK = QDP + 8;         // bf16 stride of the K tile: 80 bytes, conflict-free ldmatrix
+constexpr int NB = BQ + KT - 1;      // band rows of a tile
+constexpr float LOG2E = 1.4426950408889634f;
 
-typedef wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> FragA;
-typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> FragBt;  // rows as columns
-typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> FragB;
-typedef wmma::fragment<wmma::accumulator, 16, 16, 16, float> FragC;
+__host__ __device__ constexpr int align16(int x) { return (x + 15) / 16 * 16; }
 
-__host__ __device__ constexpr size_t align128(size_t x) { return (x + 127) / 128 * 128; }
-
-// Shared-memory layout for qd padded to QDP and NCB 16-column blocks of
-// values. Strides keep every wmma pointer 32-byte aligned (bf16 strides a
-// multiple of 8, fp32 strides a multiple of 4).
-template <int QDP, int NCB>
+// One stage: the K tile [KT][LDK], the V tile [KT][LDV] (DVC = 8·NV value
+// columns, +8 so that ldmatrix.trans rows fall in distinct banks) and the
+// band [NB][PDP] fp32; two stages.
+template <int NV, int PDP>
 struct Layout {
-  static constexpr int DVC = 16 * NCB;  // value columns per block
-  static constexpr int LDQ = QDP + 8;   // bf16 q and k tiles
-  static constexpr int LDS = BK + 4;    // fp32 S
-  static constexpr int LDP = BK + 8;    // bf16 P
-  static constexpr int LDV = DVC + 8;   // bf16 V
-  static constexpr int LDO = DVC + 4;   // fp32 O
-  static constexpr size_t q = 0;
-  static constexpr size_t k = q + align128(size_t(BQ) * LDQ * 2);
-  static constexpr size_t band = k + align128(size_t(BK) * LDQ * 2);
-  static constexpr size_t s = band + align128(size_t(PDMAX) * NBAND * 4);
-  static constexpr size_t p = s + align128(size_t(BQ) * LDS * 4);
-  static constexpr size_t v = p + align128(size_t(BQ) * LDP * 2);
-  static constexpr size_t o = v + align128(size_t(BK) * LDV * 2);
-  static constexpr size_t bytes = o + align128(size_t(BQ) * LDO * 4);
+  static constexpr int DVC = 8 * NV;
+  static constexpr int LDV = DVC + 8;
+  static constexpr int k = 0;
+  static constexpr int v = k + align16(KT * LDK * 2);
+  static constexpr int band = v + align16(KT * LDV * 2);
+  static constexpr int stage = band + align16(NB * PDP * 4);
+  static constexpr int bytes = 2 * stage;
 };
 
-// Rows [row0, row0 + 64) of a [T, qd] bf16 matrix into shared memory
-// (stride QDP + 8), 8 elements per load; rows past T and columns past qd
-// are zero. qd is a multiple of 8.
-template <int QDP>
-__device__ __forceinline__ void load_qk(bf16* dst, const bf16* src, int row0, int T, int qd) {
-  constexpr int LD = QDP + 8;
-  constexpr int VECS = QDP / 8;
-  for (int i = threadIdx.x; i < 64 * VECS; i += NT) {
-    const int r = i / VECS, d = (i % VECS) * 8;
-    const int row = row0 + r;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row < T && d < qd) val = *reinterpret_cast<const uint4*>(src + size_t(row) * qd + d);
-    *reinterpret_cast<uint4*>(dst + r * LD + d) = val;
-  }
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-template <int QDP, int NCB, bool TWO_PASS>
+// BYTES (8 or 16) from global to shared memory, asynchronously; the bytes
+// past ``src_bytes`` are zero (0: all zero, nothing read)
+template <int BYTES>
+__device__ __forceinline__ void cp_async(void* dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;" ::"r"(smem_u32(dst)), "l"(src),
+               "n"(BYTES), "r"(src_bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;" ::: "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p))
+               : "memory");
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p))
+               : "memory");
+}
+
+// d += a (16 x 16, row) · b (16 x 8, col): bf16 in, fp32 accumulators. The
+// fragments (thread = 4·gid + tig): a {row gid, gid + 8} x {cols 2tig, 2tig+1,
+// then +8}; b {k 2tig, 2tig+1, then +8} x {col gid}; d rows gid (d0, d1) and
+// gid + 8 (d2, d3), cols 2tig and 2tig + 1.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// the max of a thread's 16 scores of row h (h = 0: row gid, 1: gid + 8), as a tree
+__device__ __forceinline__ float row_max(const float (&s)[NJ][4], int h) {
+  float m[NJ];
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) m[j] = fmaxf(s[j][2 * h], s[j][2 * h + 1]);
+#pragma unroll
+  for (int w = NJ / 2; w > 0; w /= 2)
+#pragma unroll
+    for (int j = 0; j < w; ++j) m[j] = fmaxf(m[j], m[j + w]);
+  return m[0];
+}
+
+// the sweeps: the single-pass entry's STATS (row max and sum) then APPLY
+// (normalised p·v); the streamed entry's ONLINE
+enum Phase { STATS, APPLY, ONLINE };
+template <int P>
+struct PhaseTag {
+  static constexpr int value = P;
+};
+
+// QW warps, BQ query rows of row gi, value columns [c0, c0 + 8·NV)
+template <int NV, int PDP, bool TWO_PASS>
 __global__ void __launch_bounds__(NT)
 shared_rel_attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                             const bf16* __restrict__ qp, const bf16* __restrict__ pos,
                             const bf16* __restrict__ v, const int* __restrict__ lengths,
                             float* __restrict__ out, int T, int qd, int pd, int dv, int heads,
                             float scale) {
-  using L = Layout<QDP, NCB>;
+  using L = Layout<NV, PDP>;
   constexpr int DVC = L::DVC;
-  constexpr int NPER = (NCB + 1) / 2;  // O column blocks per column half
   extern __shared__ __align__(128) unsigned char smem[];
-  bf16* s_q = reinterpret_cast<bf16*>(smem + L::q);
-  bf16* s_k = reinterpret_cast<bf16*>(smem + L::k);
-  float* s_band = reinterpret_cast<float*>(smem + L::band);  // [PDMAX][NBAND]
-  float* s_s = reinterpret_cast<float*>(smem + L::s);
-  bf16* s_p = reinterpret_cast<bf16*>(smem + L::p);
-  bf16* s_v = reinterpret_cast<bf16*>(smem + L::v);
-  float* s_o = reinterpret_cast<float*>(smem + L::o);
-
-  const int tid = threadIdx.x;
-  const int wi = tid / 64, wj = (tid / 32) % 2;  // warp: row block wi, column half wj
-  const int r = tid / 4, quarter = tid % 4;      // softmax: row r, columns quarter + 4j
-  const int t0 = blockIdx.x * BQ;
-  const int g = blockIdx.y;
-  const int c0 = blockIdx.z * DVC;  // first value column of this block
-  const int len = lengths[g];
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int gid = lane / 4, tig = lane % 4, mi = lane / 8;
+  const int t0 = blockIdx.x * BQ, tw = t0 + 16 * warp;  // block's, warp's first query row
+  const int gi = blockIdx.y, c0 = blockIdx.z * DVC;
+  const int len = lengths[gi];
   const int kend = len > 0 ? min(len, T) : T;  // keys past kend have p == 0
-  const size_t gT = size_t(g) * T;
+  const int n_tiles = (kend + KT - 1) / KT;
+  const size_t gT = size_t(gi) * T;
   const bf16* kg = k + gT * qd;
   const bf16* vg = v + gT * dv;
-  const bf16* posg = pos + size_t(g % heads) * (2 * T - 1) * pd;
+  const bf16* posg = pos + size_t(gi % heads) * (2 * T - 1) * pd;
+  const float c = scale * LOG2E;  // log2 domain: p = 2^(x·c - m·c)
 
-  load_qk<QDP>(s_q, q + gT * qd, t0, T, qd);
-  float qpr[PDMAX];  // this thread's query row of qp (fp32; zero past T and pd)
+  // q's A fragments (two k16 steps) and qp of rows tw + gid (lo) and + 8 (hi)
+  uint32_t qa[2][4];
 #pragma unroll
-  for (int d = 0; d < PDMAX; ++d)
-    qpr[d] = (t0 + r < T && d < pd) ? __bfloat162float(qp[(gT + t0 + r) * pd + d]) : 0.0f;
+  for (int ks = 0; ks < 2; ++ks)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int row = tw + gid + 8 * (i & 1), col = 16 * ks + 2 * tig + 8 * (i >> 1);
+      qa[ks][i] = row < T && col < qd
+                      ? *reinterpret_cast<const uint32_t*>(q + (gT + row) * qd + col)
+                      : 0u;
+    }
+  float qp_lo[PDP], qp_hi[PDP];
+#pragma unroll
+  for (int d = 0; d < PDP; ++d) {
+    qp_lo[d] = tw + gid < T && d < pd ? __bfloat162float(qp[(gT + tw + gid) * pd + d]) : 0.0f;
+    qp_hi[d] =
+        tw + gid + 8 < T && d < pd ? __bfloat162float(qp[(gT + tw + gid + 8) * pd + d]) : 0.0f;
+  }
 
-  // Stage the key tile at s0 and its position band (and the value chunk).
-  auto stage = [&](int s0, bool with_v) {
-    load_qk<QDP>(s_k, kg, s0, T, qd);
-    const int b0 = T - BQ - t0 + s0;  // table row of band row 0: T-1-(t0+63)+s0
-    for (int i = tid; i < NBAND * pd; i += NT) {
-      const int row = i / pd, d = i % pd, l = b0 + row;
-      s_band[d * NBAND + row] =
-          (l >= 0 && l < 2 * T - 1) ? __bfloat162float(posg[size_t(l) * pd + d]) : 0.0f;
+  // the K tile (16-byte copies) and the V tile (8-byte copies where dv is a
+  // multiple of 4, as every model's is; else element by element) at s0
+  const bool v8 = dv % 4 == 0;
+  auto issue_kv = [&](int s0, int b, bool with_v) {
+    bf16* ks = reinterpret_cast<bf16*>(smem + b * L::stage + L::k);
+    for (int i = tid; i < KT * (QDP / 8); i += NT) {
+      const int r = i / (QDP / 8), col = (i % (QDP / 8)) * 8, key = s0 + r;
+      const bool ok = key < T && col < qd;
+      cp_async<16>(ks + r * LDK + col, ok ? kg + size_t(key) * qd + col : kg, ok ? 16 : 0);
     }
     if (with_v) {
-      for (int i = tid; i < BK * DVC; i += NT) {
-        const int row = i / DVC, c = i % DVC;
-        const int key = s0 + row, col = c0 + c;
-        s_v[row * L::LDV + c] =
-            (key < T && col < dv) ? vg[size_t(key) * dv + col] : __float2bfloat16(0.0f);
+      bf16* vs = reinterpret_cast<bf16*>(smem + b * L::stage + L::v);
+      if (v8) {
+        for (int i = tid; i < KT * (DVC / 4); i += NT) {
+          const int r = i / (DVC / 4), cc = (i % (DVC / 4)) * 4, key = s0 + r, col = c0 + cc;
+          const bool ok = key < T && col < dv;
+          cp_async<8>(vs + r * L::LDV + cc, ok ? vg + size_t(key) * dv + col : vg, ok ? 8 : 0);
+        }
+      } else {
+        for (int i = tid; i < KT * DVC; i += NT) {
+          const int r = i / DVC, cc = i % DVC, key = s0 + r, col = c0 + cc;
+          vs[r * L::LDV + cc] =
+              key < T && col < dv ? vg[size_t(key) * dv + col] : __float2bfloat16(0.0f);
+        }
+      }
+    }
+    cp_async_commit();
+  };
+  // band row tid of the tile at s0 (table row T-1-(t0+BQ-1)+s0+tid; NB <=
+  // NT, so one row a thread), through registers: loaded before a tile
+  // computes, stored after
+  static_assert(NB <= NT, "one band row a thread");
+  float band_next[PDP];
+  auto load_band = [&](int s0) {
+    const int l = T - BQ - t0 + s0 + tid;
+    const bool ok = tid < NB && l >= 0 && l < 2 * T - 1;
+    if (pd == PDP) {  // the row in 8-byte loads (pd = 4: one)
+#pragma unroll
+      for (int d = 0; d < PDP; d += 4) {
+        const uint2 u = ok ? *reinterpret_cast<const uint2*>(posg + size_t(l) * PDP + d)
+                           : make_uint2(0u, 0u);
+        const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+        const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+        band_next[d] = lo.x, band_next[d + 1] = lo.y;
+        band_next[d + 2] = hi.x, band_next[d + 3] = hi.y;
+      }
+    } else {
+#pragma unroll
+      for (int d = 0; d < PDP; ++d)
+        band_next[d] = ok && d < pd ? __bfloat162float(posg[size_t(l) * pd + d]) : 0.0f;
+    }
+  };
+  auto store_band = [&](int b) {
+    float4* band = reinterpret_cast<float4*>(smem + b * L::stage + L::band);
+    if (tid < NB) {
+#pragma unroll
+      for (int d = 0; d < PDP; d += 4)
+        band[tid * (PDP / 4) + d / 4] =
+            make_float4(band_next[d], band_next[d + 1], band_next[d + 2], band_next[d + 3]);
+    }
+  };
+
+  // the warp's raw scores (qp·pos + q·k, not yet scaled) of the tile at s0
+  // in stage b: s[j][i] is row gid + 8·(i / 2), key s0 + 8j + 2tig + i % 2
+  auto scores = [&](int b, int s0, float (&s)[NJ][4]) {
+    // the position term first, on the CUDA cores, as the accumulators the
+    // products then add to (the FMAs need not wait for the tensor cores):
+    // row gid at n-tile j and row gid + 8 at n-tile j + 1 read the same band
+    // row (T-1-t+s' is one apart per row and per key)
+    const float4* band = reinterpret_cast<const float4*>(smem + b * L::stage + L::band);
+    const int base = BQ - 1 - 16 * warp - gid + 2 * tig;
+#pragma unroll
+    for (int j = -1; j < NJ; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float4* br = band + (base + 8 * j + e) * (PDP / 4);
+#pragma unroll
+        for (int d4 = 0; d4 < PDP / 4; ++d4) {
+          const float4 w = br[d4];
+          if (j >= 0) {
+            float& x = s[j][e];
+            x = d4 == 0 ? qp_lo[0] * w.x : fmaf(qp_lo[4 * d4], w.x, x);
+            x = fmaf(qp_lo[4 * d4 + 1], w.y, x);
+            x = fmaf(qp_lo[4 * d4 + 2], w.z, x);
+            x = fmaf(qp_lo[4 * d4 + 3], w.w, x);
+          }
+          if (j + 1 < NJ) {
+            float& x = s[j + 1][2 + e];
+            x = d4 == 0 ? qp_hi[0] * w.x : fmaf(qp_hi[4 * d4], w.x, x);
+            x = fmaf(qp_hi[4 * d4 + 1], w.y, x);
+            x = fmaf(qp_hi[4 * d4 + 2], w.z, x);
+            x = fmaf(qp_hi[4 * d4 + 3], w.w, x);
+          }
+        }
+      }
+    const bf16* ks = reinterpret_cast<const bf16*>(smem + b * L::stage + L::k);
+#pragma unroll
+    for (int kk = 0; kk < 2; ++kk)
+#pragma unroll
+      for (int jp = 0; jp < NJ / 2; ++jp) {
+        uint32_t bf[4];
+        ldmatrix_x4(bf, ks + (16 * jp + lane % 8 + 8 * (mi >> 1)) * LDK + 16 * kk + 8 * (mi & 1));
+        mma_bf16(s[2 * jp], qa[kk], bf[0], bf[1]);
+        mma_bf16(s[2 * jp + 1], qa[kk], bf[2], bf[3]);
+      }
+    if (len == 0 || s0 + KT > kend) {  // an edge tile: keys past T or the length
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int key = s0 + 8 * j + 2 * tig + (i & 1);
+          if (key >= T || (len > 0 && key >= len))
+            s[j][i] = rs::neg_inf();
+          else if (len == 0)
+            s[j][i] = 0.0f;
+        }
+    }
+  };
+
+  // o += p·v for the tile in stage b, p in s (fp32, rounded to bf16 here)
+  float o[NV][4];
+#pragma unroll
+  for (int n = 0; n < NV; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.0f;
+  auto pv = [&](int b, const float (&p)[NJ][4]) {
+    const bf16* rows = reinterpret_cast<const bf16*>(smem + b * L::stage + L::v) +
+                       (lane % 8 + 8 * (mi & 1)) * L::LDV + 8 * (mi >> 1);
+#pragma unroll
+    for (int kk = 0; kk < NJ / 2; ++kk) {
+      const uint32_t pa[4] = {pack_bf16(p[2 * kk][0], p[2 * kk][1]),
+                              pack_bf16(p[2 * kk][2], p[2 * kk][3]),
+                              pack_bf16(p[2 * kk + 1][0], p[2 * kk + 1][1]),
+                              pack_bf16(p[2 * kk + 1][2], p[2 * kk + 1][3])};
+#pragma unroll
+      for (int vp = 0; vp < NV / 2; ++vp) {
+        uint32_t bf[4];
+        ldmatrix_x4_trans(bf, rows + 16 * kk * L::LDV + 16 * vp);
+        mma_bf16(o[2 * vp], pa, bf[0], bf[1]);
+        mma_bf16(o[2 * vp + 1], pa, bf[2], bf[3]);
       }
     }
   };
 
-  // S = q·kᵀ for the staged tile: this warp's 16 rows x 32 keys.
-  auto qk_tile = [&]() {
-    FragC acc[2];
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[j], 0.0f);
-#pragma unroll
-    for (int d0 = 0; d0 < QDP; d0 += 16) {
-      FragA a;
-      wmma::load_matrix_sync(a, s_q + wi * 16 * L::LDQ + d0, L::LDQ);
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        FragBt kt;
-        wmma::load_matrix_sync(kt, s_k + (wj * 32 + j * 16) * L::LDQ + d0, L::LDQ);
-        wmma::mma_sync(acc[j], a, kt, acc[j]);
+  // per row (lo, hi): running max (raw) and this thread's part of the sum;
+  // for APPLY the final m·c and 1 / l
+  float m[2] = {rs::neg_inf(), rs::neg_inf()}, l[2] = {0.0f, 0.0f};
+  float mc[2] = {0.0f, 0.0f}, inv_l[2] = {1.0f, 1.0f};
+
+  // one sweep over the tiles, double-buffered
+  auto sweep = [&](auto phase) {
+    constexpr int P = decltype(phase)::value;
+    issue_kv(0, 0, P != STATS);
+    load_band(0);
+    store_band(0);
+    cp_async_wait_all();
+    __syncthreads();
+    for (int i = 0; i < n_tiles; ++i) {
+      const int b = i & 1, s0 = i * KT;
+      const bool next = i + 1 < n_tiles;
+      if (next) {
+        issue_kv(s0 + KT, b ^ 1, P != STATS);
+        load_band(s0 + KT);
       }
-    }
+      float s[NJ][4];
+      scores(b, s0, s);
+      if constexpr (P == APPLY) {
 #pragma unroll
-    for (int j = 0; j < 2; ++j)
-      wmma::store_matrix_sync(s_s + wi * 16 * L::LDS + wj * 32 + j * 16, acc[j], L::LDS,
-                              wmma::mem_row_major);
-  };
-
-  // This thread's 16 scores of row r (columns quarter + 4j) in the tile at s0.
-  auto row_scores = [&](int s0, float (&vals)[BK / 4]) {
+        for (int j = 0; j < NJ; ++j)
 #pragma unroll
-    for (int j = 0; j < BK / 4; ++j) {
-      const int c = quarter + 4 * j, key = s0 + c;
-      const float* band = s_band + (BQ - 1 - r + c);
-      float bd = 0.0f;
+          for (int e = 0; e < 4; ++e) s[j][e] = ex2(fmaf(s[j][e], c, -mc[e / 2])) * inv_l[e / 2];
+        pv(b, s);
+      } else {
+        float mu[2], alpha[2];
 #pragma unroll
-      for (int d = 0; d < PDMAX; ++d)
-        if (d < pd) bd += qpr[d] * band[d * NBAND];
-      float val = (s_s[r * L::LDS + c] + bd) * scale;
-      if (key >= T) val = rs::neg_inf();
-      else if (key >= len) val = MASK_SCORE;
-      vals[j] = val;
-    }
-  };
-
-  auto row_max = [&](const float (&vals)[BK / 4]) {
-    float mx = rs::neg_inf();
+        for (int h = 0; h < 2; ++h) {
+          const float m_new = fmaxf(m[h], quad_max(row_max(s, h)));
+          mu[h] = m_new == rs::neg_inf() ? 0.0f : m_new;  // no key yet: p = 0, not NaN
+          alpha[h] = ex2((m[h] - mu[h]) * c);
+          m[h] = m_new;
+        }
+        float sum[2][2] = {{0.0f, 0.0f}, {0.0f, 0.0f}};  // two partial sums a row
 #pragma unroll
-    for (int j = 0; j < BK / 4; ++j) mx = fmaxf(mx, vals[j]);
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-    return fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-  };
-  auto quad_sum = [](float x) {
-    x += __shfl_xor_sync(0xffffffffu, x, 1);
-    return x + __shfl_xor_sync(0xffffffffu, x, 2);
-  };
-
-  float m_run = rs::neg_inf(), l_run = 0.0f;
-  float vals[BK / 4];
-
-  if (TWO_PASS) {  // sweep 1: the rows' max and sum
-    for (int s0 = 0; s0 < kend; s0 += BK) {
-      __syncthreads();  // the previous tile's readers are done
-      stage(s0, false);
+        for (int j = 0; j < NJ; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            s[j][e] = ex2(fmaf(s[j][e], c, -mu[e / 2] * c));
+            sum[e / 2][j % 2] += s[j][e];
+          }
+#pragma unroll
+        for (int h = 0; h < 2; ++h) l[h] = l[h] * alpha[h] + (sum[h][0] + sum[h][1]);
+        if constexpr (P == ONLINE) {
+#pragma unroll
+          for (int n = 0; n < NV; ++n) {
+            o[n][0] *= alpha[0], o[n][1] *= alpha[0];
+            o[n][2] *= alpha[1], o[n][3] *= alpha[1];
+          }
+          pv(b, s);
+        }
+      }
+      if (next) store_band(b ^ 1);
+      cp_async_wait_all();
       __syncthreads();
-      qk_tile();
-      __syncthreads();
-      row_scores(s0, vals);
-      const float m_new = fmaxf(m_run, row_max(vals));  // finite: key s0 is scored
-      float sum = 0.0f;
-#pragma unroll
-      for (int j = 0; j < BK / 4; ++j) sum += expf(vals[j] - m_new);
-      l_run = l_run * expf(m_run - m_new) + quad_sum(sum);
-      m_run = m_new;
     }
+  };
+
+  if constexpr (TWO_PASS) {
+    sweep(PhaseTag<STATS>());
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      mc[h] = m[h] * c;
+      inv_l[h] = 1.0f / quad_sum(l[h]);
+    }
+    sweep(PhaseTag<APPLY>());
+  } else {
+    sweep(PhaseTag<ONLINE>());
+#pragma unroll
+    for (int h = 0; h < 2; ++h) inv_l[h] = 1.0f / quad_sum(l[h]);
   }
 
-  for (int i = tid; i < BQ * L::LDO; i += NT) s_o[i] = 0.0f;
-
-  for (int s0 = 0; s0 < kend; s0 += BK) {
-    __syncthreads();
-    stage(s0, true);
-    __syncthreads();
-    qk_tile();
-    __syncthreads();
-    row_scores(s0, vals);
-    if (TWO_PASS) {  // probabilities normalised, then rounded to bf16
 #pragma unroll
-      for (int j = 0; j < BK / 4; ++j)
-        s_p[r * L::LDP + quarter + 4 * j] = __float2bfloat16(expf(vals[j] - m_run) / l_run);
-    } else {  // online softmax: unnormalised p, rescaled accumulator
-      const float m_new = fmaxf(m_run, row_max(vals));
-      float sum = 0.0f;
+  for (int h = 0; h < 2; ++h) {
+    const int t = tw + gid + 8 * h;
+    if (t >= T) continue;
+    float* orow = out + (gT + t) * dv + c0;
+    const float inv = TWO_PASS ? 1.0f : inv_l[h];
 #pragma unroll
-      for (int j = 0; j < BK / 4; ++j) {
-        const float p = expf(vals[j] - m_new);
-        s_p[r * L::LDP + quarter + 4 * j] = __float2bfloat16(p);
-        sum += p;
+    for (int n = 0; n < NV; ++n)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = 8 * n + 2 * tig + e;
+        if (c0 + col < dv) orow[col] = o[n][2 * h + e] * inv;
       }
-      const float alpha = expf(m_run - m_new);
-      l_run = l_run * alpha + quad_sum(sum);
-      m_run = m_new;
-      for (int d = quarter; d < DVC; d += 4) s_o[r * L::LDO + d] *= alpha;
-    }
-    __syncthreads();
-
-    // O += P·V: this warp's 16 rows x its column blocks of the chunk
-#pragma unroll
-    for (int cb = 0; cb < NPER; ++cb) {
-      const int col = (wj * NPER + cb) * 16;
-      if (col >= DVC) break;
-      FragC o;
-      wmma::load_matrix_sync(o, s_o + wi * 16 * L::LDO + col, L::LDO, wmma::mem_row_major);
-#pragma unroll
-      for (int k0 = 0; k0 < BK; k0 += 16) {
-        FragA pa;
-        FragB vb;
-        wmma::load_matrix_sync(pa, s_p + wi * 16 * L::LDP + k0, L::LDP);
-        wmma::load_matrix_sync(vb, s_v + k0 * L::LDV + col, L::LDV);
-        wmma::mma_sync(o, pa, vb, o);
-      }
-      wmma::store_matrix_sync(s_o + wi * 16 * L::LDO + col, o, L::LDO, wmma::mem_row_major);
-    }
-  }
-
-  __syncthreads();
-  const int t = t0 + r;
-  if (t < T) {
-    float* orow = out + (gT + t) * dv;
-    for (int d = quarter; d < DVC && c0 + d < dv; d += 4) {
-      const float o = s_o[r * L::LDO + d];
-      orow[c0 + d] = TWO_PASS ? o : o / l_run;
-    }
   }
 }
 
-template <int QDP, int NCB, bool TWO_PASS>
+template <int NV, int PDP, bool TWO_PASS>
 int launch(const void* q, const void* k, const void* qp, const void* pos, const void* v,
            const void* lengths, void* out, int G, int T, int qd, int pd, int dv, int heads,
            float scale, cudaStream_t stream) {
-  using L = Layout<QDP, NCB>;
-  const cudaError_t err = cudaFuncSetAttribute(shared_rel_attention_kernel<QDP, NCB, TWO_PASS>,
-                                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                               static_cast<int>(L::bytes));
+  using L = Layout<NV, PDP>;
+  auto kernel = shared_rel_attention_kernel<NV, PDP, TWO_PASS>;
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((T + BQ - 1) / BQ, G, (dv + L::DVC - 1) / L::DVC);
-  shared_rel_attention_kernel<QDP, NCB, TWO_PASS><<<grid, NT, L::bytes, stream>>>(
+  const int chunks = (dv + L::DVC - 1) / L::DVC;
+  const dim3 grid((T + BQ - 1) / BQ, G, chunks);
+  kernel<<<grid, NT, L::bytes, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(qp),
       static_cast<const bf16*>(pos), static_cast<const bf16*>(v),
       static_cast<const int*>(lengths), static_cast<float*>(out), T, qd, pd, dv, heads, scale);
@@ -326,17 +489,17 @@ template <bool TWO_PASS>
 int launch_any(const void* q, const void* k, const void* qp, const void* pos, const void* v,
                const void* lengths, void* out, int G, int T, int qd, int pd, int dv, int heads,
                float scale, void* stream) {
-  if (G <= 0 || G > 65535 || T <= 0 || heads <= 0 || qd <= 0 || qd > 32 || qd % 8 ||
-      pd <= 0 || pd > PDMAX || dv <= 0)
+  if (G <= 0 || G > 65535 || T <= 0 || heads <= 0 || qd <= 0 || qd > QDP || qd % 8 ||
+      pd <= 0 || pd > 8 || dv <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  // dv <= 16: one 16-column tile (the per-head applications, dv = 12);
-  // wider: chunks of 192 columns (the nonlin attention's 144 .. 576)
-  if (dv <= 16)
-    return launch<32, 1, TWO_PASS>(q, k, qp, pos, v, lengths, out, G, T, qd, pd, dv, heads,
-                                   scale, s);
-  return launch<32, 12, TWO_PASS>(q, k, qp, pos, v, lengths, out, G, T, qd, pd, dv, heads,
-                                  scale, s);
+  // dv <= 16: two n8 tiles (the per-head applications, dv = 12); wider:
+  // chunks of 192 columns (the nonlin attention's 144 .. 576)
+#define RS_LAUNCH(NV, PDP)                                                                     \
+  launch<NV, PDP, TWO_PASS>(q, k, qp, pos, v, lengths, out, G, T, qd, pd, dv, heads, scale, s)
+  if (dv <= 16) return pd <= 4 ? RS_LAUNCH(2, 4) : RS_LAUNCH(2, 8);
+  return pd <= 4 ? RS_LAUNCH(24, 4) : RS_LAUNCH(24, 8);
+#undef RS_LAUNCH
 }
 
 }  // namespace

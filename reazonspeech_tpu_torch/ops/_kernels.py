@@ -15,6 +15,7 @@ Nothing here runs at import: this module is imported on machines without
 ``nvcc`` or a GPU, where only the plain twins in ``ops/`` are used.
 """
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -27,8 +28,8 @@ from pathlib import Path
 
 import torch
 
-__all__ = ["KERNELS", "as_dtype", "build_info", "check_cuda", "launch", "launches",
-           "load_library", "stream_of"]
+__all__ = ["KERNELS", "as_dtype", "build_info", "check_cuda", "forced_tile_n", "launch",
+           "launches", "load_library", "stream_of"]
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -59,11 +60,11 @@ _SIGNATURES = {
     "rs_fused_conv_module_layer": [_P] * 13 + [_I] * 4 + [_P],
     "rs_fused_conv_module_ln_layer": [_P] * 16 + [_I] * 4 + [_P],
     # x, g, b, w0, w1, w2, c0, c1, c2, n0, n1, n2, LN scratch, out, M, D,
-    # swish, eps, tile_n, stream
-    "rs_ln_dense": [_P] * 9 + [_I] * 3 + [_P] * 2 + [_I] * 3 + [_F, _I, _P],
+    # swish, eps, stream
+    "rs_ln_dense": [_P] * 9 + [_I] * 3 + [_P] * 2 + [_I] * 3 + [_F, _P],
     # r, delta, g, b, w0, w1, w2, c0, c1, c2, n0, n1, n2, LN scratch,
-    # summed-stream out, out, M, D, swish, scale, eps, tile_n, stream
-    "rs_ln_dense_add": [_P] * 10 + [_I] * 3 + [_P] * 3 + [_I] * 3 + [_F, _F, _I, _P],
+    # summed-stream out, out, M, D, swish, scale, eps, stream
+    "rs_ln_dense_add": [_P] * 10 + [_I] * 3 + [_P] * 3 + [_I] * 3 + [_F, _F, _P],
     # r, y, g, b, lengths, out, B, T, D, scale, eps, stream
     "rs_add_ln": [_P] * 6 + [_I] * 3 + [_F, _F, _P],
     # logits, lp_blank, top_lp, top_tok, f32 scratch, i32 scratch, R, V, m,
@@ -153,6 +154,8 @@ def load_library():
                 fn.restype = ctypes.c_int
             lib.rs_cuda_error_string.argtypes = [ctypes.c_int]
             lib.rs_cuda_error_string.restype = ctypes.c_char_p
+            lib.rs_gemm_force_tile_n.argtypes = [ctypes.c_int]
+            lib.rs_gemm_force_tile_n.restype = ctypes.c_int
             _lib = lib
     return _lib
 
@@ -172,6 +175,19 @@ def launch(name, *args):
         msg = lib.rs_cuda_error_string(err).decode()
         raise RuntimeError(f"{name}: CUDA error {err} ({msg})")
     launches[name.removeprefix("rs_")] += 1
+
+
+@contextlib.contextmanager
+def forced_tile_n(tile_n):
+    """Within the block, every GEMM (``ln_dense`` and the conv module's two
+    products) launches with its column tile forced to ``tile_n`` (128 or
+    256; 0: chosen per shape, the default); for tests and timing only."""
+    fn = load_library().rs_gemm_force_tile_n
+    prev = fn(tile_n)
+    try:
+        yield
+    finally:
+        fn(prev)
 
 
 def stream_of(t):

@@ -15,9 +15,11 @@ The pre-module LayerNorm is done by the caller (x is the normalized input
 in the compute dtype), or, with ``ln_scale``/``ln_bias``, inside the kernel
 (x is the raw fp32 residual stream, normalized in fp32 and rounded to
 ``compute_dtype``). On a CUDA tensor it launches the hand-written Hopper
-kernels in ``csrc/conformer_conv.cu`` (three launches through two scratch
-tensors, one more for the in-kernel LayerNorm; the layer variant's depthwise
-launch is a row pass). Its four C entries count apart:
+kernels in ``csrc/conformer_conv.cu`` through two scratch tensors: the GLU
+product and the output product on the TMA + wgmma GEMM of
+``csrc/gemm_sm90.cuh`` with the depthwise, norm and swish pass between them,
+and one more launch for the in-kernel LayerNorm. Its four C entries count
+apart:
 ``fused_conv_module`` and ``fused_conv_module_ln`` (folded norm, caller-side
 and in-kernel LayerNorm), ``fused_conv_module_layer`` and
 ``fused_conv_module_ln_layer`` (the per-frame LayerNorm). On a CPU tensor it runs
@@ -93,8 +95,10 @@ def fused_conv_module(x, lengths, w_in, b_in, dw, b_dw, bn_scale, bn_bias,
       compute_dtype: the matmul dtype (default x.dtype)
 
     Returns [B, T, D] in the compute dtype. On CUDA the compute dtype is
-    bf16, x is bf16 (fp32 with the in-kernel LayerNorm) and D % 64 == 0
-    (D <= 2048 with ``norm="layer"``);
+    bf16, x is bf16 (fp32 with the in-kernel LayerNorm) and D a multiple of
+    8 (TMA's 16-byte rows); with ``norm="layer"`` one frame's D fp32 sums
+    must fit in a block's shared memory (D <= 58,112 on the H100: the
+    kernel refuses a wider D before it launches anything, and this raises);
     weights are cast to the kernel's dtypes here, as the JAX wrapper casts
     them.
     """
@@ -107,9 +111,8 @@ def fused_conv_module(x, lengths, w_in, b_in, dw, b_dw, bn_scale, bn_bias,
     b, t, d = x.shape
     k = dw.shape[0]
     layer = norm == "layer"
-    if d % 64 or (layer and d > 2048):
-        raise ValueError(f"fused_conv_module: D={d} must be a multiple of 64"
-                         + (" up to 2048 with norm='layer'" if layer else ""))
+    if d % 8:
+        raise ValueError(f"fused_conv_module: D={d} must be a multiple of 8")
     bf16, f32, dev = torch.bfloat16, torch.float32, x.device
     in_ln = ln_scale is not None
     if (compute_dtype or x.dtype) != bf16:

@@ -153,9 +153,8 @@ def _affine(ln_scale, ln_bias, d, dev):
     return g, bb
 
 
-def _ln_dense_cuda(x, delta, scale, ln_scale, ln_bias, w, c, activation, eps, tile_n=0):
-    """The kernel path; ``tile_n`` forces the GEMM's output column tile (128
-    or 256; 0 lets the kernel choose), for timing the two."""
+def _ln_dense_cuda(x, delta, scale, ln_scale, ln_bias, w, c, activation, eps):
+    """The kernel path."""
     ws, cs = _segments(w, c)
     _check_activation(activation)
     bf16, f32, dev = torch.bfloat16, torch.float32, x.device
@@ -188,10 +187,10 @@ def _ln_dense_cuda(x, delta, scale, ln_scale, ln_bias, w, c, activation, eps, ti
         if delta is None:
             launch("rs_ln_dense", x.data_ptr(), g.data_ptr(), bb.data_ptr(), *w_ptrs, *c_ptrs,
                    *widths, xn.data_ptr(), out.data_ptr(), b * t, d, swish, float(eps),
-                   tile_n, stream_of(x))
+                   stream_of(x))
             return out, None
         summed = torch.empty_like(x)
         launch("rs_ln_dense_add", x.data_ptr(), delta.data_ptr(), g.data_ptr(), bb.data_ptr(),
                *w_ptrs, *c_ptrs, *widths, xn.data_ptr(), summed.data_ptr(), out.data_ptr(),
-               b * t, d, swish, float(scale), float(eps), tile_n, stream_of(x))
+               b * t, d, swish, float(scale), float(eps), stream_of(x))
     return out, summed

@@ -17,11 +17,13 @@ or past a length are garbage (finite), and the caller masks them.
   dtype, and the division by the row sum comes at the end.
 
 On CUDA tensors both launch the hand-written Hopper kernel in
-``csrc/zipformer_attention.cu``: one kernel source, two C entries with their
-own launch counts. The single-pass entry sweeps the keys twice (row max and
-sum, then normalised probabilities times v), so it rounds where the JAX
-kernel rounds without holding a [T, T] row block; the streamed entry sweeps
-once with the online softmax over 64-key tiles. On CPU tensors they run
+``csrc/zipformer_attention.cu`` (scores, probabilities and the output
+accumulator in registers, on mma.sync tensor-core tiles): one kernel source,
+two C entries with their own launch counts. The single-pass entry sweeps the
+keys twice (row max and sum, then normalised probabilities times v), so it
+rounds where the JAX kernel rounds without holding a [T, T] row block; the
+streamed entry sweeps once with the online softmax over 64-key tiles. On CPU
+tensors they run
 their ``*_plain`` twins (the streamed one at the JAX kernel's default block,
 256; its ``block`` and ``round_lanes`` set the twin's geometry).
 """
@@ -142,7 +144,7 @@ def shared_rel_attention(q, k, qp, pos, v, lengths, heads=1):
       v: [G, T, dv]; lengths: [G] int32 valid key counts
 
     Returns [G, T, dv] fp32. CUDA tensors must be contiguous bf16 (lengths
-    int32) with qd a multiple of 8 up to 64 and pd up to 8; anything else
+    int32) with qd a multiple of 8 up to 32 and pd up to 8; anything else
     raises.
     """
     if q.device.type == "cpu":

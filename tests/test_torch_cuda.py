@@ -19,6 +19,7 @@ from reazonspeech_tpu_torch.ops import (
     shared_rel_attention_blockwise, shared_rel_attention_blockwise_plain,
     shared_rel_attention_plain, topm_logsoftmax, topm_logsoftmax_plain,
 )
+from reazonspeech_tpu_torch.ops._kernels import forced_tile_n
 from reazonspeech_tpu_torch.ops.relpos_attention import (
     relpos_attention, relpos_attention_blockwise, relpos_attention_blockwise_plain,
     relpos_attention_plain,
@@ -172,15 +173,14 @@ def _ln_inputs(dev, b, t, d, widths, seed):
 def test_ln_dense_kernel_matches_plain(dev, bt, d, widths, act):
     """bf16 out within 2 bf16 ulps of the twin at the largest |value|, with
     the GEMM's column tile chosen by the kernel and forced to 128 and 256."""
-    from reazonspeech_tpu_torch.ops.ln_dense import _ln_dense_cuda
-
     _, x, g, b, w, c = _ln_inputs(dev, *bt, d, widths, seed=bt[1] + d)
     got = ln_dense(x, g, b, w, c, activation=act)
     want = ln_dense_plain(x, g, b, w, c, act)
     torch.cuda.synchronize()
     assert _max_err(got, want) <= _bf16_tol(want)
     for tile_n in (128, 256):
-        got = _ln_dense_cuda(x, None, 1.0, g, b, w, c, act, 1e-5, tile_n)[0]
+        with forced_tile_n(tile_n):
+            got = ln_dense(x, g, b, w, c, activation=act)
         torch.cuda.synchronize()
         assert _max_err(got, want) <= _bf16_tol(want), tile_n
 
@@ -339,6 +339,44 @@ def test_shared_attention_blockwise_kernel_matches_plain(dev, g, t, qd, dv, head
     assert _max_err(got, want) <= 2e-3
 
 
+# (g, t, qd, pd, dv, heads, lengths): T not a multiple of 64; lengths 0, 1
+# and T; G = 1; dv = 12, 144 and 576 (the nonlin applications: one chunk of
+# 192 value columns, and three); dv = 6, 13 and 198, not multiples of 4 (V
+# staged element by element; 198 in a full chunk and one of 6 columns); qd =
+# 8 and 16 (zero-padded to 32); pd = 2 and 8; k2's stack 0 and the streamed
+# entry's T=3196
+SHARED_WIDE = [(3, 77, 32, 4, 12, 3, [0, 1, 77]), (1, 200, 32, 4, 12, 1, [200]),
+               (2, 130, 32, 4, 144, 1, [130, 0]), (2, 200, 32, 4, 576, 1, [1, 200]),
+               (4, 1596, 32, 4, 12, 4, [1596, 0, 1, 1000]), (1, 3196, 32, 4, 144, 1, [3196]),
+               (2, 70, 8, 2, 4, 2, [70, 3]), (2, 70, 16, 8, 12, 1, [70, 64]),
+               (2, 100, 32, 4, 6, 2, [100, 37]), (3, 90, 32, 4, 13, 1, [0, 90, 5]),
+               (2, 210, 32, 4, 198, 1, [210, 71])]
+
+
+@pytest.mark.parametrize("entry", ["single", "streamed"])
+@pytest.mark.parametrize("g,t,qd,pd,dv,heads,lens", SHARED_WIDE)
+def test_shared_attention_wide_kernel_matches_plain(dev, entry, g, t, qd, pd, dv, heads, lens):
+    """Both entries against their twins (the streamed one at 64-key blocks),
+    fp32 out within 2e-3 as above. A row of length 0 is garbage to
+    the caller; the kernel gives every key in [0, T) the same score, a
+    uniform row, as the single-pass twin does (the streamed twin's padded
+    keys would join it)."""
+    gen = torch.Generator().manual_seed(t * dv + pd)
+    lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+    args = (_rand(gen, g, t, qd, scale=0.5), _rand(gen, g, t, qd, scale=0.5),
+            _rand(gen, g, t, pd), _rand(gen, heads, 2 * t - 1, pd), _rand(gen, g, t, dv),
+            lengths)
+    want = shared_rel_attention_plain(*args, heads=heads)
+    fn = shared_rel_attention
+    if entry == "streamed":
+        fn = shared_rel_attention_blockwise
+        want = torch.where((lengths == 0)[:, None, None], want,
+                           shared_rel_attention_blockwise_plain(*args, heads=heads, block=64))
+    got = fn(*args, heads=heads)
+    torch.cuda.synchronize()
+    assert got.shape == (g, t, dv) and _max_err(got, want) <= 2e-3
+
+
 def test_shared_attention_wrong_inputs_raise(dev):
     args = list(_shared_inputs(dev, 2, 33, 32, 12, 1, seed=0))
     with pytest.raises(TypeError):
@@ -350,6 +388,51 @@ def test_shared_attention_wrong_inputs_raise(dev):
     wide = list(_shared_inputs(dev, 2, 33, 64, 12, 1, seed=0))
     with pytest.raises(ValueError):
         shared_rel_attention(*wide)  # qd=64: the kernel takes qd <= 32
+
+
+def _misaligned(t):
+    """A copy of ``t`` that is contiguous but starts one element past a
+    16-byte boundary (a view at storage offset 1)."""
+    flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    view = flat[1:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+@pytest.mark.parametrize("arg", ["conv bn_scale", "conv ln_scale", "attention q",
+                                 "attention pos"])
+def test_misaligned_inputs_raise(dev, arg):
+    """The conv module's per-channel vectors and the shared attention's
+    inputs are read with 16-byte (and 8-byte) loads: a view that is not
+    16-byte aligned is refused with a ValueError before any launch, and the
+    card stays usable."""
+    gen = torch.Generator().manual_seed(7)
+    f32 = torch.float32
+    if arg.startswith("conv"):
+        b, t, d, k = 1, 8, 64, 9
+        args = [_rand(gen, b, t, d, dtype=f32), torch.tensor([t], dtype=torch.int32, device=dev),
+                _rand(gen, d, 2 * d, scale=0.1, dtype=f32), _rand(gen, 2 * d, dtype=f32),
+                _rand(gen, k, 1, d, dtype=f32), _rand(gen, d, dtype=f32),
+                _rand(gen, d, dtype=f32), _rand(gen, d, dtype=f32),
+                _rand(gen, d, d, scale=0.1, dtype=f32), _rand(gen, d, dtype=f32)]
+        kw = dict(ln_scale=_rand(gen, d, dtype=f32), ln_bias=_rand(gen, d, dtype=f32),
+                  compute_dtype=torch.bfloat16)
+        if arg == "conv bn_scale":
+            args[6] = _misaligned(args[6].to(f32))
+        else:
+            kw["ln_scale"] = _misaligned(kw["ln_scale"])
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            fused_conv_module(*args, **kw)
+    else:
+        args = list(_shared_inputs(dev, 2, 33, 32, 12, 1, seed=0))
+        i = 0 if arg == "attention q" else 3
+        args[i] = _misaligned(args[i])
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            shared_rel_attention(*args)
+    args = _shared_inputs(dev, 2, 33, 32, 12, 1, seed=0)
+    got = shared_rel_attention(*args)
+    torch.cuda.synchronize()
+    assert _max_err(got, shared_rel_attention_plain(*args)) <= 2e-3
 
 
 def test_tiny_k2_model_runs_both_entries(dev, monkeypatch):
@@ -442,6 +525,45 @@ def test_conv_module_layer_norm_kernel_matches_plain(dev, in_ln, t, d, k):
     entry = "fused_conv_module_ln_layer" if in_ln else "fused_conv_module_layer"
     assert launch_counts()[entry] == 1
     assert _max_err(got, want) <= 0.03
+
+
+# (b, t, d, norm): M = B·T of 1, 127 and 129 (one short of a 128-row tile
+# and one past it) and 1,604 (nemo's bucket); D = 200 (not a multiple of
+# 64), 1,024 and, with norm="layer", 2,560 (past the former cap of 2,048)
+CONV_WIDE = [(1, 1, 200, "folded"), (1, 127, 1024, "folded"), (3, 43, 200, "layer"),
+             (4, 401, 1024, "folded"), (1, 129, 2560, "layer"), (4, 401, 200, "folded"),
+             (1, 127, 2560, "layer")]
+
+
+@pytest.mark.parametrize("in_ln", [False, True])
+@pytest.mark.parametrize("b,t,d,norm", CONV_WIDE)
+def test_conv_module_wide_kernel_matches_plain(dev, b, t, d, norm, in_ln):
+    """Both norms with the pre-module LayerNorm by the caller and inside:
+    bf16 out, fp32 inside, 0.03 abs as at the paths' shapes, with the GEMMs'
+    column tile chosen per shape and forced to 128 and to 256. Lengths
+    ragged, 0 included."""
+    gen = torch.Generator().manual_seed(b * t + d)
+    f32, k = torch.float32, 9 if norm == "folded" else 31
+    x = _rand(gen, b, t, d, dtype=f32) + 1.0
+    if not in_ln:
+        x = x.to(torch.bfloat16)
+    lens = [t, t // 2, 0, max(t - 13, 0)][:b]
+    args = (x, torch.tensor(lens, dtype=torch.int32, device=dev),
+            _rand(gen, d, 2 * d, scale=d ** -0.5, dtype=f32),
+            _rand(gen, 2 * d, scale=0.1, dtype=f32),
+            _rand(gen, k, 1, d, scale=k ** -0.5, dtype=f32), _rand(gen, d, scale=0.1, dtype=f32),
+            1.0 + _rand(gen, d, scale=0.1, dtype=f32), _rand(gen, d, scale=0.1, dtype=f32),
+            _rand(gen, d, d, scale=d ** -0.5, dtype=f32), _rand(gen, d, scale=0.1, dtype=f32))
+    kw = dict(norm=norm)
+    if in_ln:
+        kw.update(ln_scale=1.0 + _rand(gen, d, scale=0.1, dtype=f32),
+                  ln_bias=_rand(gen, d, scale=0.1, dtype=f32), compute_dtype=torch.bfloat16)
+    want = fused_conv_module_plain(*args, **kw)
+    for tile_n in (0, 128, 256):
+        with forced_tile_n(tile_n):
+            got = fused_conv_module(*args, **kw)
+        torch.cuda.synchronize()
+        assert _max_err(got, want) <= 0.03, tile_n
 
 
 def test_tiny_espnet_model_runs_the_kernels(dev, monkeypatch):
