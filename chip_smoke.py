@@ -26,7 +26,14 @@ Phases, each of which fails the run (nonzero exit, no result line):
    nemo ALSD's, espnet Graves' and k2 ALSD's shapes and on exact ties, and
    the LSTM cell at nemo's and espnet's predictors beside torch.lstm_cell;
    then the top-m and step kernels past their former size caps (m = 40,
-   V = 50,000, H = J = 3,072, H_in = H = 1,536). The LayerNorm-fused
+   V = 50,000, H = J = 3,072, H_in = H = 1,536); then every rel-pos entry
+   at head widths past the published models' (dh = 8, 36, 44, 80, 96,
+   256) and both shared-attention entries at (qd, pd) = (64, 4), (12, 9),
+   (48, 16) and (128, 32). The packed attention at nemo's bucket and the
+   single-pass entry at espnet's window are also timed beside torch's
+   scaled_dot_product_attention on the same q+u, k and v with the shifted
+   position term and the length mask as a precomputed float mask (not the
+   same function; a yardstick the port never calls). The LayerNorm-fused
    projections (rows 4-5) and the conv module (row 2, at nemo's and
    espnet's shapes) are also timed with their GEMMs' column tile forced to
    128 and to 256, beside the bare cuBLAS bf16 products on the same
@@ -46,6 +53,8 @@ Phases, each of which fails the run (nonzero exit, no result line):
    configuration on the same weights; then load_model(beam_size=40) (m = 40
    label expansions a hypothesis on the top-m kernel) through a 5 s
    transcribe, its tokens against the same decode with the top-m twin;
+   then a 4-block encoder of d_model = 176 and 4 heads (dh = 44: the
+   generic route) on a short batch against its plain-twin path;
 5. k2 path: asr.load_model(device="cuda", checkpoint="random") at the
    published reazonspeech-k2-v2 shape (ZipformerConfig.large(), full width
    and depth, attn_impl="pallas"), transcribe_batch of 4 x 30 s (every
@@ -368,6 +377,7 @@ def kernel_checks(dev):
     rows += bucket_kernel_checks(rand, dev) + shared_attention_checks(rand, dev)
     rows += espnet_kernel_checks(rand, dev) + step_kernel_checks(rand, dev)
     wide_kernel_checks(rand, dev)
+    head_width_checks(rand, dev)
     return rows
 
 
@@ -479,6 +489,10 @@ def bucket_kernel_checks(rand, dev):
     rows.append(_compare("relpos_attention_fused_packed", ops.relpos_attention_fused_packed,
                          ops.relpos_attention_fused_packed_plain,
                          (qkv, pos, bu, bv, lengths, h), 0.03, iters=20, flops=flops_relpos))
+    heads_first = lambda x: x.reshape(b, t, h, d // h).transpose(1, 2)  # noqa: E731
+    q = heads_first(qkv[..., :d])
+    sdpa_yardstick(rows[-1], "T=401", q + bu.to(bf16)[:, None], q + bv.to(bf16)[:, None],
+                   heads_first(qkv[..., d:2 * d]), heads_first(qkv[..., 2 * d:]), pos, lengths)
     # conv module with its LayerNorm inside, on the raw stream
     args = (x, lengths, rand(d, 2 * d, scale=d ** -0.5, dtype=f32),
             rand(2 * d, scale=0.1, dtype=f32), rand(k, 1, d, scale=k ** -0.5, dtype=f32),
@@ -582,10 +596,13 @@ def espnet_kernel_checks(rand, dev):
     # 64-key tile, its twin given block=64); an fp32 sum order or an expf ulp
     # can move one across a bf16 boundary: one ulp times |v| <= ~2 on a few keys
     for label, b, lens in (("B=1, T=549", 1, [549]), ("B=4, T=549", 4, [549, 549, 520, 301])):
-        row = _compare("relpos_attention", relpos_attention, relpos_attention_plain,
-                       bhtd(b, 549, lens), SHARED_ATOL, iters=20, label=label,
-                       flops=flops_relpos_bhtd)
-        rows += [row] if b == 1 else []
+        args = bhtd(b, 549, lens)
+        row = _compare("relpos_attention", relpos_attention, relpos_attention_plain, args,
+                       SHARED_ATOL, iters=20, label=label, flops=flops_relpos_bhtd)
+        if b == 1:
+            rows.append(row)
+            qu, qv, kk, v, pos, lengths = args
+            sdpa_yardstick(row, label, qu, qv, kk, v, pos, lengths)
     rows.append(_compare("relpos_attention_blockwise", relpos_attention_blockwise,
                          relpos_attention_blockwise_plain, bhtd(1, 1149, [1149]), SHARED_ATOL,
                          iters=10, label="B=1, T=1149", flops=flops_relpos_bhtd,
@@ -741,6 +758,99 @@ def wide_kernel_checks(rand, dev):
     _compare("lstm_cell_step", ops.lstm_cell_step, ops.lstm_cell_step_plain, args,
              (1e-5, 1e-5), iters=20, kwargs=dict(compute_dtype="float32"),
              label="R=16, H_in=H=1536", flops=flops_lstm)
+
+
+def sdpa_yardstick(row, label, qu, qv, k, v, pos, lengths):
+    """torch's scaled_dot_product_attention on the same q+u, k and v
+    ([B, H, T, dh] bf16), given the shifted position term (q+v)·posᵀ, scaled,
+    plus the length mask as a float attn_mask built outside the timed call:
+    not the same function (the position term precomputed), a yardstick
+    beside the kernel (the port never calls it). Events ms into
+    ``row["library_ms"]``; events and device ms in the log."""
+    import torch
+    import torch.nn.functional as F
+
+    from reazonspeech_tpu_torch.ops.relpos_attention import rel_shift
+
+    t, dh = qu.shape[2], qu.shape[3]
+    scale = dh ** -0.5
+    bd = torch.einsum("bhtd,lhd->bhtl", qv.float(), pos.float())
+    mask = rel_shift(bd) * scale
+    keys = torch.arange(t, device=qu.device)[None, None, None, :]
+    mask = mask.masked_fill(keys >= lengths[:, None, None, None], -1e30).to(qu.dtype)
+    qu, k, v = (x.contiguous() for x in (qu, k, v))
+
+    def call():
+        return F.scaled_dot_product_attention(qu, k, v, attn_mask=mask, scale=scale)
+
+    row["library_ms"] = cuda_ms(call, 20)
+    row["library_note"] = "not the same function: position term precomputed"
+    items = device_items(call, 20)
+    names = ", ".join(sorted({n[:60] for n, _, _ in items}))
+    log(f"{row['name']} ({label}): scaled_dot_product_attention on the same q+u, k, v with "
+        f"the position term and length mask as a precomputed float mask (not the same "
+        f"function): events ms {row['library_ms']:.4f}, device ms "
+        f"{fmt_ms(sum(ms for _, ms, _ in items) if items else None)} ({names}); the kernel's "
+        f"device ms {fmt_ms(row['device_ms'])}")
+
+
+# head widths past the published models' (rows 1, 7, 8, 9 at dh = 8 .. 256;
+# rows 10-11 at qd up to 128 and pd up to 32): checked, not in the JSON line
+HEAD_DIMS = (8, 36, 44, 80, 96, 256)
+SHARED_WIDTHS = ((64, 4), (12, 9), (48, 16), (128, 32))
+
+
+def head_width_checks(rand, dev):
+    """Every rel-pos entry at the head widths the JAX kernels take beyond
+    dh in (16, 32, 64, 128) (B=2, T=300, ragged lengths; 16 heads of dh = 8
+    as the fused route packs them, else 4), and both shared-attention
+    entries at (qd, pd) past (32, 4) (G=8, T=400, dv=12, 4 heads),
+    tolerances as at the paths' shapes. Logged only."""
+    import torch
+
+    from reazonspeech_tpu_torch import ops
+    from reazonspeech_tpu_torch.ops.relpos_attention import (
+        relpos_attention, relpos_attention_blockwise, relpos_attention_blockwise_plain,
+        relpos_attention_plain,
+    )
+
+    f32 = torch.float32
+    b, t = 2, 300
+    lengths = torch.tensor([t, 173], dtype=torch.int32, device=dev)
+    for dh in HEAD_DIMS:
+        h = 16 if dh == 8 else 4
+        d = h * dh
+        pos = rand(2 * t - 1, h, dh, scale=0.5)
+        bu, bv = rand(h, dh, scale=0.1, dtype=f32), rand(h, dh, scale=0.1, dtype=f32)
+        qkv = rand(b, t, 3 * d, scale=0.5)
+        q, kk, v = (x.contiguous() for x in qkv.chunk(3, dim=-1))
+        label = f"dh={dh}, H={h}, T={t}"
+        _compare("relpos_attention_fused_packed", ops.relpos_attention_fused_packed,
+                 ops.relpos_attention_fused_packed_plain, (qkv, pos, bu, bv, lengths, h), 0.03,
+                 iters=5, label=label, flops=flops_relpos)
+        _compare("relpos_attention_fused", ops.relpos_attention_fused,
+                 ops.relpos_attention_fused_plain, (q, kk, v, pos, bu, bv, lengths, h), 0.03,
+                 iters=5, label=label, flops=flops_relpos)
+        args = tuple(rand(b, h, t, dh, scale=0.5) for _ in range(4)) + (pos, lengths)
+        _compare("relpos_attention", relpos_attention, relpos_attention_plain, args,
+                 SHARED_ATOL, iters=5, label=label, flops=flops_relpos_bhtd)
+        _compare("relpos_attention_blockwise", relpos_attention_blockwise,
+                 relpos_attention_blockwise_plain, args, SHARED_ATOL, iters=5, label=label,
+                 flops=flops_relpos_bhtd, plain_kwargs=dict(block=64))
+    g, t, heads = 8, 400, 4
+    lengths = torch.tensor([t, 1] + [t - 37 * i for i in range(2, g)], dtype=torch.int32,
+                           device=dev)
+    for qd, pd in SHARED_WIDTHS:
+        args = (rand(g, t, qd, scale=0.5), rand(g, t, qd, scale=0.5), rand(g, t, pd),
+                rand(heads, 2 * t - 1, pd), rand(g, t, 12), lengths)
+        label = f"qd={qd}, pd={pd}, G={g}, T={t}"
+        _compare("shared_rel_attention", ops.shared_rel_attention,
+                 ops.shared_rel_attention_plain, args, SHARED_ATOL, iters=5,
+                 kwargs=dict(heads=heads), label=label, flops=flops_shared)
+        _compare("shared_rel_attention_blockwise", ops.shared_rel_attention_blockwise,
+                 ops.shared_rel_attention_blockwise_plain, args, SHARED_ATOL, iters=5,
+                 kwargs=dict(heads=heads), label=label, flops=flops_shared,
+                 plain_kwargs=dict(block=64))
 
 
 def _compare(name, kernel, plain, args, atol, iters, *, flops, kwargs=None, label=None,
@@ -1043,6 +1153,50 @@ def reference_check(model):
     for g, w_, what in zip(got[:3], want[:3], ("tokens", "frames", "counts")):
         check(torch.equal(g, w_), f"ALSD {what} differ between the top-m kernel and its twin")
     log(f"ALSD with the top-m kernel == with its plain twin: counts {got[2].tolist()}")
+
+
+def head_width_encoder_check():
+    """A 4-block FastConformer encoder of d_model = 176 and 4 heads (dh = 44,
+    which no kernel took before: the generic [B, H, T, dh] route, its
+    single-pass entry at T <= 1024) in the GPU serving configuration on
+    random weights: a short ragged batch through the kernels and through the
+    same path with the plain twins, relative L2 <= 5e-2 on valid frames (as
+    the full-width encoders); the rel-pos kernel must have launched."""
+    import torch
+
+    from reazonspeech_tpu_torch import ops
+    from reazonspeech_tpu_torch.frontend.features import log_mel_spectrogram
+    from reazonspeech_tpu_torch.models.fastconformer import (
+        FastConformerConfig, attention_route, fastconformer_encode,
+    )
+    from reazonspeech_tpu_torch.nemo.asr import load_model
+
+    cfg = FastConformerConfig.xlarge(num_layers=4, d_model=176, num_heads=4, attn_impl="pallas",
+                                     conv_impl="pallas", lnd_impl="pallas",
+                                     compute_dtype="bfloat16", residual_dtype="float32")
+    model = load_model(device="cuda", checkpoint="random", enc_cfg=cfg)
+    wav = np.stack([speech_like(10.0, seed=70), speech_like(10.0, seed=71)])
+    wav[1, 6 * SR:] = 0.0
+    with torch.inference_mode():
+        w = torch.from_numpy(wav).to(model.device)
+        lens = torch.tensor([10 * SR, 6 * SR], dtype=torch.int32, device=model.device)
+        feats, fl = log_mel_spectrogram(w, lens, model.fe_cfg)
+        ops.reset_launch_counts()
+        enc, el = fastconformer_encode(model.params["encoder"], feats, fl, model.enc_cfg)
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        with plain_twins():
+            ref, _ = fastconformer_encode(model.params["encoder"], feats, fl, model.enc_cfg)
+    route = attention_route(model.enc_cfg, enc.shape[1])
+    log(f"dh=44 encoder (4 blocks, d=176, 4 heads, T={enc.shape[1]}): route {route}, "
+        f"launches {({k: n for k, n in counts.items() if n})}")
+    check(route == "generic" and counts["relpos_attention"] == 4,
+          f"dh=44 encoder: route {route}, rel-pos launches {counts['relpos_attention']}")
+    check(bool(torch.isfinite(enc).all()), "dh=44 encoder: non-finite output")
+    valid = (torch.arange(enc.shape[1], device=enc.device)[None, :] < el[:, None])[..., None]
+    rel = ((enc - ref) * valid).norm().item() / (ref * valid).norm().item()
+    log(f"dh=44 encoder, kernels vs plain twins: relative L2 {rel:.3g} (tol 5e-2)")
+    check(rel <= 5e-2, f"dh=44 encoder relative error {rel}")
 
 
 def check_k2_results(results, durations):
@@ -1822,6 +1976,7 @@ def main():
     rows = kernel_checks(dev)
     counts = main_path(dev, f"{smi}")
     nemo_beam40_phase(f"{smi}")
+    head_width_encoder_check()
     counts.update(nemo_step_path(f"{smi}"))  # rows 12-13 take their launches from here
     counts.update(k2_path(f"{smi}"))
     k2_beam_path(f"{smi}")

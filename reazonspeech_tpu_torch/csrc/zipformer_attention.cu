@@ -73,10 +73,11 @@
 // length are skipped; a length of 0 gives every key in [0, T) the same
 // score, as the JAX kernel's -1e30 everywhere does (a uniform row).
 
-#include "common.cuh"
+#include "warp_mma.cuh"
 
 namespace {
 
+using namespace rs;
 typedef __nv_bfloat16 bf16;
 
 constexpr int QW = 4;                // warps a block (16 query rows each)
@@ -84,122 +85,45 @@ constexpr int NT = 32 * QW;          // threads a block
 constexpr int BQ = 16 * QW;          // query rows a block
 constexpr int KT = 64;               // keys a tile
 constexpr int NJ = KT / 8;           // score n-tiles of a warp's tile
-constexpr int QDP = 32;              // q/k width, zero-padded
-constexpr int LDK = QDP + 8;         // bf16 stride of the K tile: 80 bytes, conflict-free ldmatrix
 constexpr int NB = BQ + KT - 1;      // band rows of a tile
+constexpr int MAX_QD = 128, MAX_PD = 32;  // the widest q/k and qp the kernel takes
 constexpr float LOG2E = 1.4426950408889634f;
 
 __host__ __device__ constexpr int align16(int x) { return (x + 15) / 16 * 16; }
 
-// One stage: the K tile [KT][LDK], the V tile [KT][LDV] (DVC = 8·NV value
-// columns, +8 so that ldmatrix.trans rows fall in distinct banks) and the
-// band [NB][PDP] fp32; two stages.
-template <int NV, int PDP>
+// One stage: the K tile [KT][LDK] (QDP = qd zero-padded; LDK = QDP + 8, an
+// odd number of 16-byte words: conflict-free ldmatrix), the V tile
+// [KT][LDV] (DVC = 8·NV value columns, +8 so that ldmatrix.trans rows fall
+// in distinct banks) and the band [NB][PDP] fp32; two stages. Past PDP = 8
+// the block's qp rows [BQ][PDP] fp32 follow (QP_SMEM).
+template <int NV, int PDP, int QDP>
 struct Layout {
   static constexpr int DVC = 8 * NV;
+  static constexpr int LDK = QDP + 8;
   static constexpr int LDV = DVC + 8;
+  static constexpr bool QP_SMEM = PDP > 8;
   static constexpr int k = 0;
   static constexpr int v = k + align16(KT * LDK * 2);
   static constexpr int band = v + align16(KT * LDV * 2);
   static constexpr int stage = band + align16(NB * PDP * 4);
-  static constexpr int bytes = 2 * stage;
+  static constexpr int qp = 2 * stage;
+  static constexpr int bytes = qp + (QP_SMEM ? BQ * PDP * 4 : 0);
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// BYTES (8 or 16) from global to shared memory, asynchronously; the bytes
-// past ``src_bytes`` are zero (0: all zero, nothing read)
-template <int BYTES>
-__device__ __forceinline__ void cp_async(void* dst, const void* src, int src_bytes) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;" ::"r"(smem_u32(dst)), "l"(src),
-               "n"(BYTES), "r"(src_bytes)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;" ::: "memory");
-}
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;" ::: "memory");
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p))
-               : "memory");
-}
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p))
-               : "memory");
-}
-
-// d += a (16 x 16, row) · b (16 x 8, col): bf16 in, fp32 accumulators. The
-// fragments (thread = 4·gid + tig): a {row gid, gid + 8} x {cols 2tig, 2tig+1,
-// then +8}; b {k 2tig, 2tig+1, then +8} x {col gid}; d rows gid (d0, d1) and
-// gid + 8 (d2, d3), cols 2tig and 2tig + 1.
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-__device__ __forceinline__ float quad_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-}
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x + __shfl_xor_sync(0xffffffffu, x, 2);
-}
-
-// the max of a thread's 16 scores of row h (h = 0: row gid, 1: gid + 8), as a tree
-__device__ __forceinline__ float row_max(const float (&s)[NJ][4], int h) {
-  float m[NJ];
-#pragma unroll
-  for (int j = 0; j < NJ; ++j) m[j] = fmaxf(s[j][2 * h], s[j][2 * h + 1]);
-#pragma unroll
-  for (int w = NJ / 2; w > 0; w /= 2)
-#pragma unroll
-    for (int j = 0; j < w; ++j) m[j] = fmaxf(m[j], m[j + w]);
-  return m[0];
-}
 
 // the sweeps: the single-pass entry's STATS (row max and sum) then APPLY
 // (normalised p·v); the streamed entry's ONLINE
 enum Phase { STATS, APPLY, ONLINE };
-template <int P>
-struct PhaseTag {
-  static constexpr int value = P;
-};
 
 // QW warps, BQ query rows of row gi, value columns [c0, c0 + 8·NV)
-template <int NV, int PDP, bool TWO_PASS>
+template <int NV, int PDP, int QDP, bool TWO_PASS>
 __global__ void __launch_bounds__(NT)
 shared_rel_attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                             const bf16* __restrict__ qp, const bf16* __restrict__ pos,
                             const bf16* __restrict__ v, const int* __restrict__ lengths,
                             float* __restrict__ out, int T, int qd, int pd, int dv, int heads,
                             float scale) {
-  using L = Layout<NV, PDP>;
-  constexpr int DVC = L::DVC;
+  using L = Layout<NV, PDP, QDP>;
+  constexpr int DVC = L::DVC, LDK = L::LDK;
   extern __shared__ __align__(128) unsigned char smem[];
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int gid = lane / 4, tig = lane % 4, mi = lane / 8;
@@ -214,35 +138,81 @@ shared_rel_attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__
   const bf16* posg = pos + size_t(gi % heads) * (2 * T - 1) * pd;
   const float c = scale * LOG2E;  // log2 domain: p = 2^(x·c - m·c)
 
-  // q's A fragments (two k16 steps) and qp of rows tw + gid (lo) and + 8 (hi)
-  uint32_t qa[2][4];
+  // q's A fragments (QDP / 16 k16 steps) and qp of rows tw + gid (lo) and
+  // + 8 (hi): in registers up to PDP = 8, else the block's rows in shared
+  // memory. (The published widths' code is kept as it was: a rewrite of
+  // these lines with the same meaning slowed the streamed entry on the
+  // H100, PERF.md §6.)
+  uint32_t qa[QDP / 16][4];
+  constexpr int PQR = L::QP_SMEM ? 1 : PDP;  // qp values a row in registers
+  float qp_lo[PQR], qp_hi[PQR];
+  const float4* s_qp = reinterpret_cast<const float4*>(smem + L::qp);
+  if constexpr (QDP == 32) {  // qd a multiple of 8, pd <= 8
 #pragma unroll
-  for (int ks = 0; ks < 2; ++ks)
+    for (int ks = 0; ks < 2; ++ks)
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = tw + gid + 8 * (i & 1), col = 16 * ks + 2 * tig + 8 * (i >> 1);
-      qa[ks][i] = row < T && col < qd
-                      ? *reinterpret_cast<const uint32_t*>(q + (gT + row) * qd + col)
-                      : 0u;
+      for (int i = 0; i < 4; ++i) {
+        const int row = tw + gid + 8 * (i & 1), col = 16 * ks + 2 * tig + 8 * (i >> 1);
+        qa[ks][i] = row < T && col < qd
+                        ? *reinterpret_cast<const uint32_t*>(q + (gT + row) * qd + col)
+                        : 0u;
+      }
+#pragma unroll
+    for (int d = 0; d < PDP; ++d) {
+      qp_lo[d] =
+          tw + gid < T && d < pd ? __bfloat162float(qp[(gT + tw + gid) * pd + d]) : 0.0f;
+      qp_hi[d] = tw + gid + 8 < T && d < pd
+                     ? __bfloat162float(qp[(gT + tw + gid + 8) * pd + d])
+                     : 0.0f;
     }
-  float qp_lo[PDP], qp_hi[PDP];
+  } else {  // any qd (a 2-byte load an element where qd is odd), qp staged
 #pragma unroll
-  for (int d = 0; d < PDP; ++d) {
-    qp_lo[d] = tw + gid < T && d < pd ? __bfloat162float(qp[(gT + tw + gid) * pd + d]) : 0.0f;
-    qp_hi[d] =
-        tw + gid + 8 < T && d < pd ? __bfloat162float(qp[(gT + tw + gid + 8) * pd + d]) : 0.0f;
+    for (int ks = 0; ks < QDP / 16; ++ks)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int row = tw + gid + 8 * (i & 1), col = 16 * ks + 2 * tig + 8 * (i >> 1);
+        const bf16* p = q + (gT + row) * qd + col;
+        if (row >= T || col >= qd)
+          qa[ks][i] = 0u;
+        else if (qd % 2 == 0)
+          qa[ks][i] = *reinterpret_cast<const uint32_t*>(p);
+        else
+          qa[ks][i] = pack_bf16(__bfloat162float(p[0]),
+                                col + 1 < qd ? __bfloat162float(p[1]) : 0.0f);
+      }
+    float* qs = reinterpret_cast<float*>(smem + L::qp);
+    for (int i = tid; i < BQ * PDP; i += NT) {
+      const int r = i / PDP, d = i % PDP;
+      qs[i] = t0 + r < T && d < pd ? __bfloat162float(qp[(gT + t0 + r) * pd + d]) : 0.0f;
+    }
   }
 
-  // the K tile (16-byte copies) and the V tile (8-byte copies where dv is a
-  // multiple of 4, as every model's is; else element by element) at s0
+  // the K tile (copies of VW elements: 16 bytes where qd is a multiple of
+  // 8, as every model's is; narrower where it is not) and the V tile (8-byte
+  // copies where dv is a multiple of 4; else element by element) at s0
+  auto k_rows = [&](bf16* ks, int s0, auto width) {
+    constexpr int VW = decltype(width)::value;
+    for (int i = tid; i < KT * (QDP / VW); i += NT) {
+      const int r = i / (QDP / VW), col = (i % (QDP / VW)) * VW, key = s0 + r;
+      const bool ok = key < T && col < qd;
+      const bf16* src = ok ? kg + size_t(key) * qd + col : kg;
+      if constexpr (VW == 1)
+        ks[r * LDK + col] = ok ? *src : __float2bfloat16(0.0f);
+      else
+        cp_async<2 * VW>(ks + r * LDK + col, src, ok ? 2 * VW : 0);
+    }
+  };
   const bool v8 = dv % 4 == 0;
   auto issue_kv = [&](int s0, int b, bool with_v) {
     bf16* ks = reinterpret_cast<bf16*>(smem + b * L::stage + L::k);
-    for (int i = tid; i < KT * (QDP / 8); i += NT) {
-      const int r = i / (QDP / 8), col = (i % (QDP / 8)) * 8, key = s0 + r;
-      const bool ok = key < T && col < qd;
-      cp_async<16>(ks + r * LDK + col, ok ? kg + size_t(key) * qd + col : kg, ok ? 16 : 0);
-    }
+    if (QDP == 32 || qd % 8 == 0)  // QDP = 32: qd a multiple of 8
+      k_rows(ks, s0, Tag<8>());
+    else if (qd % 4 == 0)
+      k_rows(ks, s0, Tag<4>());
+    else if (qd % 2 == 0)
+      k_rows(ks, s0, Tag<2>());
+    else
+      k_rows(ks, s0, Tag<1>());
     if (with_v) {
       bf16* vs = reinterpret_cast<bf16*>(smem + b * L::stage + L::v);
       if (v8) {
@@ -262,36 +232,57 @@ shared_rel_attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__
     cp_async_commit();
   };
   // band row tid of the tile at s0 (table row T-1-(t0+BQ-1)+s0+tid; NB <=
-  // NT, so one row a thread), through registers: loaded before a tile
-  // computes, stored after
+  // NT, so one row a thread) into stage b: up to PDP = 8 through registers,
+  // loaded before a tile computes and stored after; wider rows straight
+  // into the stage (which the previous tile has left)
   static_assert(NB <= NT, "one band row a thread");
-  float band_next[PDP];
-  auto load_band = [&](int s0) {
+  float band_next[PQR];
+  auto load_band = [&](int s0, int b) {
     const int l = T - BQ - t0 + s0 + tid;
     const bool ok = tid < NB && l >= 0 && l < 2 * T - 1;
-    if (pd == PDP) {  // the row in 8-byte loads (pd = 4: one)
+    if constexpr (!L::QP_SMEM) {
+      if (pd == PDP) {  // the row in 8-byte loads (pd = 4: one)
 #pragma unroll
-      for (int d = 0; d < PDP; d += 4) {
-        const uint2 u = ok ? *reinterpret_cast<const uint2*>(posg + size_t(l) * PDP + d)
-                           : make_uint2(0u, 0u);
-        const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
-        const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
-        band_next[d] = lo.x, band_next[d + 1] = lo.y;
-        band_next[d + 2] = hi.x, band_next[d + 3] = hi.y;
+        for (int d = 0; d < PDP; d += 4) {
+          const uint2 u = ok ? *reinterpret_cast<const uint2*>(posg + size_t(l) * PDP + d)
+                             : make_uint2(0u, 0u);
+          const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+          const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+          band_next[d] = lo.x, band_next[d + 1] = lo.y;
+          band_next[d + 2] = hi.x, band_next[d + 3] = hi.y;
+        }
+      } else {
+#pragma unroll
+        for (int d = 0; d < PDP; ++d)
+          band_next[d] = ok && d < pd ? __bfloat162float(posg[size_t(l) * pd + d]) : 0.0f;
       }
-    } else {
+    } else if (tid < NB) {  // straight into the stage, 8-byte loads where pd allows
+      float* row = reinterpret_cast<float*>(smem + b * L::stage + L::band) + tid * PDP;
+      for (int d = 0; d < PDP; d += 4) {
+        if (pd % 4 == 0) {
+          const uint2 u = ok && d < pd
+                              ? *reinterpret_cast<const uint2*>(posg + size_t(l) * pd + d)
+                              : make_uint2(0u, 0u);
+          const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+          const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+          *reinterpret_cast<float4*>(row + d) = make_float4(lo.x, lo.y, hi.x, hi.y);
+        } else {
 #pragma unroll
-      for (int d = 0; d < PDP; ++d)
-        band_next[d] = ok && d < pd ? __bfloat162float(posg[size_t(l) * pd + d]) : 0.0f;
+          for (int e = 0; e < 4; ++e)
+            row[d + e] = ok && d + e < pd ? __bfloat162float(posg[size_t(l) * pd + d + e]) : 0.0f;
+        }
+      }
     }
   };
   auto store_band = [&](int b) {
-    float4* band = reinterpret_cast<float4*>(smem + b * L::stage + L::band);
-    if (tid < NB) {
+    if constexpr (!L::QP_SMEM) {
+      float4* band = reinterpret_cast<float4*>(smem + b * L::stage + L::band);
+      if (tid < NB) {
 #pragma unroll
-      for (int d = 0; d < PDP; d += 4)
-        band[tid * (PDP / 4) + d / 4] =
-            make_float4(band_next[d], band_next[d + 1], band_next[d + 2], band_next[d + 3]);
+        for (int d = 0; d < PDP; d += 4)
+          band[tid * (PDP / 4) + d / 4] =
+              make_float4(band_next[d], band_next[d + 1], band_next[d + 2], band_next[d + 3]);
+      }
     }
   };
 
@@ -311,26 +302,38 @@ shared_rel_attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__
         const float4* br = band + (base + 8 * j + e) * (PDP / 4);
 #pragma unroll
         for (int d4 = 0; d4 < PDP / 4; ++d4) {
+          if (L::QP_SMEM && 4 * d4 >= pd) break;
           const float4 w = br[d4];
+          float4 lo, hi;  // qp of rows gid and gid + 8, columns 4·d4 ..
+          if constexpr (L::QP_SMEM) {
+            lo = s_qp[(16 * warp + gid) * (PDP / 4) + d4];
+            hi = s_qp[(16 * warp + gid + 8) * (PDP / 4) + d4];
+          } else {
+            lo = make_float4(qp_lo[4 * d4], qp_lo[4 * d4 + 1], qp_lo[4 * d4 + 2],
+                             qp_lo[4 * d4 + 3]);
+            hi = make_float4(qp_hi[4 * d4], qp_hi[4 * d4 + 1], qp_hi[4 * d4 + 2],
+                             qp_hi[4 * d4 + 3]);
+          }
           if (j >= 0) {
             float& x = s[j][e];
-            x = d4 == 0 ? qp_lo[0] * w.x : fmaf(qp_lo[4 * d4], w.x, x);
-            x = fmaf(qp_lo[4 * d4 + 1], w.y, x);
-            x = fmaf(qp_lo[4 * d4 + 2], w.z, x);
-            x = fmaf(qp_lo[4 * d4 + 3], w.w, x);
+            x = d4 == 0 ? lo.x * w.x : fmaf(lo.x, w.x, x);
+            x = fmaf(lo.y, w.y, x);
+            x = fmaf(lo.z, w.z, x);
+            x = fmaf(lo.w, w.w, x);
           }
           if (j + 1 < NJ) {
             float& x = s[j + 1][2 + e];
-            x = d4 == 0 ? qp_hi[0] * w.x : fmaf(qp_hi[4 * d4], w.x, x);
-            x = fmaf(qp_hi[4 * d4 + 1], w.y, x);
-            x = fmaf(qp_hi[4 * d4 + 2], w.z, x);
-            x = fmaf(qp_hi[4 * d4 + 3], w.w, x);
+            x = d4 == 0 ? hi.x * w.x : fmaf(hi.x, w.x, x);
+            x = fmaf(hi.y, w.y, x);
+            x = fmaf(hi.z, w.z, x);
+            x = fmaf(hi.w, w.w, x);
           }
         }
       }
     const bf16* ks = reinterpret_cast<const bf16*>(smem + b * L::stage + L::k);
 #pragma unroll
-    for (int kk = 0; kk < 2; ++kk)
+    for (int kk = 0; kk < QDP / 16; ++kk) {
+      if (QDP > 32 && 16 * kk >= qd) break;  // k16 steps wholly past qd are zero
 #pragma unroll
       for (int jp = 0; jp < NJ / 2; ++jp) {
         uint32_t bf[4];
@@ -338,6 +341,7 @@ shared_rel_attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__
         mma_bf16(s[2 * jp], qa[kk], bf[0], bf[1]);
         mma_bf16(s[2 * jp + 1], qa[kk], bf[2], bf[3]);
       }
+    }
     if (len == 0 || s0 + KT > kend) {  // an edge tile: keys past T or the length
 #pragma unroll
       for (int j = 0; j < NJ; ++j)
@@ -384,7 +388,7 @@ shared_rel_attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__
   auto sweep = [&](auto phase) {
     constexpr int P = decltype(phase)::value;
     issue_kv(0, 0, P != STATS);
-    load_band(0);
+    load_band(0, 0);
     store_band(0);
     cp_async_wait_all();
     __syncthreads();
@@ -393,7 +397,7 @@ shared_rel_attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__
       const bool next = i + 1 < n_tiles;
       if (next) {
         issue_kv(s0 + KT, b ^ 1, P != STATS);
-        load_band(s0 + KT);
+        load_band(s0 + KT, b ^ 1);
       }
       float s[NJ][4];
       scores(b, s0, s);
@@ -438,15 +442,15 @@ shared_rel_attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__
   };
 
   if constexpr (TWO_PASS) {
-    sweep(PhaseTag<STATS>());
+    sweep(Tag<STATS>());
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       mc[h] = m[h] * c;
       inv_l[h] = 1.0f / quad_sum(l[h]);
     }
-    sweep(PhaseTag<APPLY>());
+    sweep(Tag<APPLY>());
   } else {
-    sweep(PhaseTag<ONLINE>());
+    sweep(Tag<ONLINE>());
 #pragma unroll
     for (int h = 0; h < 2; ++h) inv_l[h] = 1.0f / quad_sum(l[h]);
   }
@@ -467,12 +471,12 @@ shared_rel_attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__
   }
 }
 
-template <int NV, int PDP, bool TWO_PASS>
+template <int NV, int PDP, int QDP, bool TWO_PASS>
 int launch(const void* q, const void* k, const void* qp, const void* pos, const void* v,
            const void* lengths, void* out, int G, int T, int qd, int pd, int dv, int heads,
            float scale, cudaStream_t stream) {
-  using L = Layout<NV, PDP>;
-  auto kernel = shared_rel_attention_kernel<NV, PDP, TWO_PASS>;
+  using L = Layout<NV, PDP, QDP>;
+  auto kernel = shared_rel_attention_kernel<NV, PDP, QDP, TWO_PASS>;
   const cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -489,16 +493,22 @@ template <bool TWO_PASS>
 int launch_any(const void* q, const void* k, const void* qp, const void* pos, const void* v,
                const void* lengths, void* out, int G, int T, int qd, int pd, int dv, int heads,
                float scale, void* stream) {
-  if (G <= 0 || G > 65535 || T <= 0 || heads <= 0 || qd <= 0 || qd > QDP || qd % 8 ||
-      pd <= 0 || pd > 8 || dv <= 0)
+  if (G <= 0 || G > 65535 || T <= 0 || heads <= 0 || qd <= 0 || qd > MAX_QD || pd <= 0 ||
+      pd > MAX_PD || dv <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   // dv <= 16: two n8 tiles (the per-head applications, dv = 12); wider:
-  // chunks of 192 columns (the nonlin attention's 144 .. 576)
-#define RS_LAUNCH(NV, PDP)                                                                     \
-  launch<NV, PDP, TWO_PASS>(q, k, qp, pos, v, lengths, out, G, T, qd, pd, dv, heads, scale, s)
-  if (dv <= 16) return pd <= 4 ? RS_LAUNCH(2, 4) : RS_LAUNCH(2, 8);
-  return pd <= 4 ? RS_LAUNCH(24, 4) : RS_LAUNCH(24, 8);
+  // chunks of 192 columns (the nonlin attention's 144 .. 576). qd a
+  // multiple of 8 up to 32 and pd up to 8 (every published Zipformer2):
+  // q·kᵀ in two k16 steps, qp in registers; any other width up to 128 and
+  // 32: q·kᵀ in up to eight k16 steps, qp in shared memory
+#define RS_LAUNCH(NV, PDP, QDP)                                                                \
+  launch<NV, PDP, QDP, TWO_PASS>(q, k, qp, pos, v, lengths, out, G, T, qd, pd, dv, heads,      \
+                                 scale, s)
+  const int nv = dv <= 16 ? 2 : 24;
+  if (qd > 32 || qd % 8 || pd > 8) return nv == 2 ? RS_LAUNCH(2, 32, 128) : RS_LAUNCH(24, 32, 128);
+  if (nv == 2) return pd <= 4 ? RS_LAUNCH(2, 4, 32) : RS_LAUNCH(2, 8, 32);
+  return pd <= 4 ? RS_LAUNCH(24, 4, 32) : RS_LAUNCH(24, 8, 32);
 #undef RS_LAUNCH
 }
 

@@ -13,8 +13,9 @@ inside. ``relpos_attention_fused_packed`` (the port of
 [B, T, 3D] projection, the output of the q/k/v :func:`~.ln_dense.ln_dense`.
 On CUDA tensors both launch the hand-written Hopper kernel in
 ``csrc/relpos_attention.cu`` (one kernel with a row stride, online softmax
-over key tiles, so no T cap); on CPU tensors they run their ``*_plain``
-twins, the plain PyTorch formula with the JAX kernel's dtype chain.
+over key tiles, so no T cap, and any head size up to 256); on CPU tensors
+they run their ``*_plain`` twins, the plain PyTorch formula with the JAX
+kernel's dtype chain.
 
 ``relpos_attention`` and ``relpos_attention_blockwise`` are the ports of the
 JAX kernels of the same names: qu = q+u and qv = q+v (summed and rounded by
@@ -42,7 +43,7 @@ __all__ = ["rel_shift", "relpos_attention", "relpos_attention_blockwise",
            "relpos_attention_fused_plain", "relpos_attention_plain"]
 
 _MASK = -1.0e30  # score of a key past the valid length (the JAX kernel's constant)
-_HEAD_DIMS = (16, 32, 64, 128)  # head sizes the CUDA kernel is instantiated for
+_MAX_HEAD_DIM = 256  # the widest head the CUDA kernel takes (the JAX kernels take any)
 
 
 def rel_shift(x):
@@ -80,9 +81,10 @@ def relpos_attention_fused_packed_plain(qkv, pos, bias_u, bias_v, lengths, heads
 
 
 def _head_dim(d, h, name):
-    dh = d // h
-    if dh * h != d or dh not in _HEAD_DIMS:
-        raise ValueError(f"{name}: head dim {d}/{h} not in {_HEAD_DIMS}")
+    dh = d // h if h > 0 else 0
+    if dh * h != d or not 0 < dh <= _MAX_HEAD_DIM:
+        raise ValueError(f"{name}: head dim {d}/{h} is not an integer from 1 to "
+                         f"{_MAX_HEAD_DIM}")
     return dh
 
 
@@ -107,8 +109,8 @@ def relpos_attention_fused(q, k, v, pos, bias_u, bias_v, lengths, heads):
       bias_u, bias_v: [H, dh] content/position biases (cast to q.dtype)
       lengths: [B] int32 valid key counts
 
-    Returns [B, T, D] in q.dtype. CUDA tensors must be bf16 and contiguous,
-    with dh in (16, 32, 64, 128); anything else raises.
+    Returns [B, T, D] in q.dtype. CUDA tensors must be bf16, contiguous and
+    16-byte aligned, with dh at most 256; anything else raises.
     """
     if q.device.type == "cpu":
         return relpos_attention_fused_plain(q, k, v, pos, bias_u, bias_v, lengths, heads)
@@ -136,8 +138,8 @@ def relpos_attention_fused_packed(qkv, pos, bias_u, bias_v, lengths, heads):
       pos, bias_u, bias_v, lengths: as in :func:`relpos_attention_fused`
 
     Returns [B, T, D] in qkv.dtype. Every query row is computed; only keys
-    at or past ``lengths`` are masked. CUDA tensors must be bf16 and
-    contiguous, with dh in (16, 32, 64, 128).
+    at or past ``lengths`` are masked. CUDA tensors must be bf16, contiguous
+    and 16-byte aligned, with dh at most 256.
     """
     if qkv.device.type == "cpu":
         return relpos_attention_fused_packed_plain(qkv, pos, bias_u, bias_v, lengths, heads)
@@ -224,8 +226,8 @@ def _launch_bhtd(entry, qu, qv, k, v, pos, lengths):
     """Check the [B, H, T, dh] inputs the CUDA kernel takes and launch
     ``entry``; returns the fp32 [B, H, T, dh] output."""
     b, h, t, dh = qu.shape
-    if dh not in _HEAD_DIMS:
-        raise ValueError(f"{entry}: head dim {dh} not in {_HEAD_DIMS}")
+    if dh > _MAX_HEAD_DIM:
+        raise ValueError(f"{entry}: head dim {dh} past the kernel's {_MAX_HEAD_DIM}")
     bf16, dev = torch.bfloat16, qu.device
     check_cuda("qu", qu, bf16, (b, h, t, dh))
     for name, x in (("qv", qv), ("k", k), ("v", v)):
@@ -248,8 +250,8 @@ def relpos_attention(qu, qv, k, v, pos, lengths):
       pos: [2T-1, H, dh] projected relative-position table, offsets T-1 … -(T-1)
       lengths: [B] int32 valid key counts
 
-    Returns [B, H, T, dh] fp32. CUDA tensors must be contiguous bf16 (lengths
-    int32) with dh in (16, 32, 64, 128); anything else raises.
+    Returns [B, H, T, dh] fp32. CUDA tensors must be contiguous, 16-byte
+    aligned bf16 (lengths int32) with dh at most 256; anything else raises.
     """
     if qu.device.type == "cpu":
         return relpos_attention_plain(qu, qv, k, v, pos, lengths)

@@ -40,8 +40,8 @@ __all__ = ["shared_rel_attention", "shared_rel_attention_blockwise",
            "shared_rel_attention_blockwise_plain", "shared_rel_attention_plain"]
 
 _MASK = -1.0e30  # score of a key past the valid length (the JAX kernels' constant)
-_MAX_QD = 32  # query/key width the CUDA kernel takes (padded to 32 inside)
-_MAX_PD = 8  # position-query width it keeps in registers
+_MAX_QD = 128  # the widest query/key the CUDA kernel takes (the JAX kernels take any)
+_MAX_PD = 32  # the widest position query it takes
 
 
 def _row_tables(pos, g, heads):
@@ -116,9 +116,9 @@ def _launch(entry, q, k, qp, pos, v, lengths, heads):
     """Check the inputs the CUDA kernel takes and launch ``entry``."""
     g, t, qd = q.shape
     pd, dv = qp.shape[-1], v.shape[-1]
-    if qd % 8 or qd > _MAX_QD or not 0 < pd <= _MAX_PD or heads <= 0:
-        raise ValueError(f"{entry}: qd={qd} (a multiple of 8 up to {_MAX_QD}), "
-                         f"pd={pd} (up to {_MAX_PD}), heads={heads} not taken")
+    if not 0 < qd <= _MAX_QD or not 0 < pd <= _MAX_PD or heads <= 0:
+        raise ValueError(f"{entry}: qd={qd} (up to {_MAX_QD}), pd={pd} (up to {_MAX_PD}), "
+                         f"heads={heads} not taken")
     bf16, dev = torch.bfloat16, q.device
     check_cuda("q", q, bf16, (g, t, qd))
     check_cuda("k", k, bf16, (g, t, qd), dev)
@@ -143,9 +143,9 @@ def shared_rel_attention(q, k, qp, pos, v, lengths, heads=1):
         T-1 … -(T-1); row g reads table g % heads
       v: [G, T, dv]; lengths: [G] int32 valid key counts
 
-    Returns [G, T, dv] fp32. CUDA tensors must be contiguous bf16 (lengths
-    int32) with qd a multiple of 8 up to 32 and pd up to 8; anything else
-    raises.
+    Returns [G, T, dv] fp32. CUDA tensors must be contiguous, 16-byte
+    aligned bf16 (lengths int32) with qd up to 128 and pd up to 32; anything
+    else raises.
     """
     if q.device.type == "cpu":
         return shared_rel_attention_plain(q, k, qp, pos, v, lengths, heads)

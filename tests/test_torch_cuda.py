@@ -350,7 +350,13 @@ SHARED_WIDE = [(3, 77, 32, 4, 12, 3, [0, 1, 77]), (1, 200, 32, 4, 12, 1, [200]),
                (4, 1596, 32, 4, 12, 4, [1596, 0, 1, 1000]), (1, 3196, 32, 4, 144, 1, [3196]),
                (2, 70, 8, 2, 4, 2, [70, 3]), (2, 70, 16, 8, 12, 1, [70, 64]),
                (2, 100, 32, 4, 6, 2, [100, 37]), (3, 90, 32, 4, 13, 1, [0, 90, 5]),
-               (2, 210, 32, 4, 198, 1, [210, 71])]
+               (2, 210, 32, 4, 198, 1, [210, 71]),
+               # widths past the published ones (q·kᵀ in up to 8 k16 steps, qp
+               # in shared memory): qd = 64, 12, 48, 128 and odd 7; pd = 9,
+               # 16, 32 and 3
+               (2, 77, 64, 4, 12, 2, [77, 0]), (3, 70, 12, 9, 12, 1, [70, 1, 33]),
+               (2, 130, 48, 16, 144, 1, [130, 5]), (2, 70, 128, 32, 12, 2, [70, 64]),
+               (2, 33, 7, 3, 13, 1, [33, 0])]
 
 
 @pytest.mark.parametrize("entry", ["single", "streamed"])
@@ -386,8 +392,12 @@ def test_shared_attention_wrong_inputs_raise(dev):
     with pytest.raises(ValueError):
         shared_rel_attention_blockwise(*(args[:4] + [args[4][:, :, :5]] + args[5:]))  # not contiguous
     wide = list(_shared_inputs(dev, 2, 33, 64, 12, 1, seed=0))
-    with pytest.raises(ValueError):
-        shared_rel_attention(*wide)  # qd=64: the kernel takes qd <= 32
+    got = shared_rel_attention(*wide)  # qd=64: taken since the kernel goes to 128
+    torch.cuda.synchronize()
+    assert _max_err(got, shared_rel_attention_plain(*wide)) <= 2e-3
+    wide = list(_shared_inputs(dev, 2, 33, 129, 12, 1, seed=0))
+    with pytest.raises(ValueError, match="qd=129"):
+        shared_rel_attention(*wide)  # past the kernel's 128
 
 
 def _misaligned(t):
@@ -400,9 +410,9 @@ def _misaligned(t):
 
 
 @pytest.mark.parametrize("arg", ["conv bn_scale", "conv ln_scale", "attention q",
-                                 "attention pos"])
+                                 "attention pos", "relpos qu", "relpos packed qkv"])
 def test_misaligned_inputs_raise(dev, arg):
-    """The conv module's per-channel vectors and the shared attention's
+    """The conv module's per-channel vectors and the two attention kernels'
     inputs are read with 16-byte (and 8-byte) loads: a view that is not
     16-byte aligned is refused with a ValueError before any launch, and the
     card stays usable."""
@@ -423,6 +433,18 @@ def test_misaligned_inputs_raise(dev, arg):
             kw["ln_scale"] = _misaligned(kw["ln_scale"])
         with pytest.raises(ValueError, match="16-byte aligned"):
             fused_conv_module(*args, **kw)
+    elif arg == "relpos qu":
+        args = list(_bhtd_inputs(dev, 2, 2, 64, 33, seed=0))
+        args[0] = _misaligned(args[0])
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            relpos_attention(*args)
+    elif arg == "relpos packed qkv":
+        qkv = _misaligned(_rand(gen, 2, 33, 3 * 128, scale=0.5))
+        pos = _rand(gen, 65, 2, 64)
+        bu, bv = (_rand(gen, 2, 64, dtype=f32) for _ in range(2))
+        lengths = torch.tensor([33, 5], dtype=torch.int32, device=dev)
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            relpos_attention_fused_packed(qkv, pos, bu, bv, lengths, 2)
     else:
         args = list(_shared_inputs(dev, 2, 33, 32, 12, 1, seed=0))
         i = 0 if arg == "attention q" else 3
@@ -494,8 +516,56 @@ def test_relpos_attention_bhtd_wrong_inputs_raise(dev):
         relpos_attention(qu.float(), qv, k, v, pos, lengths)  # fp32 qu
     with pytest.raises(ValueError):
         relpos_attention_blockwise(qu, qv, k, v, pos[:10], lengths)  # short pos table
-    with pytest.raises(ValueError):
-        relpos_attention(*(x[..., :8] for x in (qu, qv, k, v)), pos[..., :8], lengths)  # dh=8
+    wide = torch.zeros((2, 2, 33, 257), dtype=torch.bfloat16, device=dev)
+    with pytest.raises(ValueError, match="past the kernel's 256"):
+        relpos_attention(wide, wide, wide, wide, pos, lengths)
+
+
+# (dh, t): head widths that are not multiples of 16 or past 128 (zero-padded
+# to 16, 48, 48, 80 and 96, staged by cp.async in 16-, 8- and 16-byte
+# copies; 192 and 256 by TMA into the 256-column instance, 192 through a
+# box past dh, both in two blocks of 128 value columns), at T = 1 and T =
+# 77 (not a multiple of 64), on every entry; lengths T, 0 and 1
+HEAD_DIM_CASES = [(dh, t) for dh in (8, 36, 44, 80, 96, 192, 256) for t in (1, 77)]
+
+
+@pytest.mark.parametrize("entry", ["fused", "packed", "single", "streamed"])
+@pytest.mark.parametrize("dh,t", HEAD_DIM_CASES)
+def test_relpos_attention_head_dims_match_plain(dev, entry, dh, t):
+    """Each of the kernel's four entries against its twin at head widths the
+    JAX kernels take (bf16 out within 0.03, fp32 out within 2e-3, as the
+    tests above). A length of 0 scores every key alike (a uniform row); the
+    streamed twin's padded keys would join that row, so there the kernel is
+    held to the single-pass twin. 16 heads of dh = 8 (the fused route's
+    packing), else 2."""
+    gen = torch.Generator().manual_seed(dh * t)
+    b, h = 3, 16 if dh == 8 else 2
+    lengths = torch.tensor([t, 0, 1], dtype=torch.int32, device=dev)
+    pos = _rand(gen, 2 * t - 1, h, dh, scale=0.5)
+    if entry in ("fused", "packed"):
+        bu, bv = (_rand(gen, h, dh, scale=0.1, dtype=torch.float32) for _ in range(2))
+        qkv = _rand(gen, b, t, 3 * h * dh, scale=0.5)
+        if entry == "packed":
+            got = relpos_attention_fused_packed(qkv, pos, bu, bv, lengths, h)
+            want = relpos_attention_fused_packed_plain(qkv, pos, bu, bv, lengths, h)
+        else:
+            q, k, v = (x.contiguous() for x in qkv.chunk(3, dim=-1))
+            got = relpos_attention_fused(q, k, v, pos, bu, bv, lengths, h)
+            want = relpos_attention_fused_plain(q, k, v, pos, bu, bv, lengths, h)
+        tol = 0.03
+    else:
+        args = tuple(_rand(gen, b, h, t, dh, scale=0.5) for _ in range(4)) + (pos, lengths)
+        want = relpos_attention_plain(*args)
+        if entry == "single":
+            got = relpos_attention(*args)
+        else:
+            got = relpos_attention_blockwise(*args)
+            want = torch.where((lengths == 0)[:, None, None, None], want,
+                               relpos_attention_blockwise_plain(*args, block=64))
+        tol = 2e-3
+    torch.cuda.synchronize()
+    assert got.shape == want.shape and got.dtype == want.dtype
+    assert _max_err(got, want) <= tol
 
 
 @pytest.mark.parametrize("in_ln", [False, True])

@@ -75,11 +75,11 @@ def test_blockwise_twin_rounded_lanes_matches_jax(t):
 def test_wrappers_refuse_cuda_layouts_they_do_not_take():
     """The CUDA path checks its inputs before any launch; nothing falls back
     to a twin. (No GPU here: a meta tensor stands for a non-CPU one.)"""
-    q = torch.empty((2, 8, 12), device="meta", dtype=torch.bfloat16)  # qd not a multiple of 8
-    with pytest.raises(ValueError, match="qd=12"):
+    q = torch.empty((2, 8, 129), device="meta", dtype=torch.bfloat16)  # qd past 128
+    with pytest.raises(ValueError, match="qd=129"):
         tza.shared_rel_attention(q, q, q[..., :4], None, q, None, heads=1)
-    with pytest.raises(ValueError, match="pd=9"):
-        tza.shared_rel_attention_blockwise(q[..., :8], q[..., :8], q[..., :9], None, q, None)
+    with pytest.raises(ValueError, match="pd=33"):  # pd past 32
+        tza.shared_rel_attention_blockwise(q[..., :8], q[..., :8], q[..., :33], None, q, None)
 
 
 def random_zipformer_tree(seed, cfg):
