@@ -26,9 +26,16 @@ Phases, each of which fails the run (nonzero exit, no result line):
    nemo ALSD's, espnet Graves' and k2 ALSD's shapes and on exact ties, and
    the LSTM cell at nemo's and espnet's predictors beside torch.lstm_cell;
    then the top-m and step kernels past their former size caps (m = 40,
-   V = 50,000, H = J = 3,072, H_in = H = 1,536); then every rel-pos entry
-   at head widths past the published models' (dh = 8, 36, 44, 80, 96,
-   256) and both shared-attention entries at (qd, pd) = (64, 4), (12, 9),
+   V = 50,000, H = J = 3,072, H_in = H = 1,536). The top-m (row 3) is
+   also timed beside torch.amax over the same logits (one reduction over
+   the same bytes) and must run as one device kernel a call at every V
+   (V = 3,001, 2,182 and 50,000); the fused joint (row 12) beside the bare
+   fp32 cuBLAS products dec.Wp and z.Wo, with its device kernels a call (at
+   most two: no merge launch) and its span from the first kernel's start
+   to the last one's end beside the summed device ms: yardsticks, never
+   called by the port, and not the same functions. Then every
+   rel-pos entry at head widths past the published models' (dh = 8, 36,
+   44, 80, 96, 256) and both shared-attention entries at (qd, pd) = (64, 4), (12, 9),
    (48, 16) and (128, 32). The packed attention at nemo's bucket and the
    single-pass entry at espnet's window are also timed beside torch's
    scaled_dot_product_attention on the same q+u, k and v with the shifted
@@ -89,7 +96,8 @@ Phases, each of which fails the run (nonzero exit, no result line):
    decoding="beam") at ZipformerConfig.large() with joint_impl="pallas",
    transcribe_batch of 4 x 30 s; in the espnet path, decode_batch of the
    four 20 s windows with both switches, pops per lane-frame, ms and
-   device launches per issued pop with and without them. Each runs again
+   device launches per issued pop with and without them (the joint is two
+   device launches a call, the top-m one). Each runs again
    with the two kernels' plain twins: the tokens must be equal, or else the
    first differing step's two candidates must lie within 1e-4 in fp32 (a
    near-tie the two summation orders break differently);
@@ -233,6 +241,32 @@ def device_ms(fn, calls):
     return sum(ms for _, ms, _ in items) if items else None
 
 
+def device_calls(fn, calls, name):
+    """(device kernels named ``*name*`` a call, device span of a call in
+    ms): torch.profiler over ``calls`` calls of fn() after a warm-up; the
+    span runs from a call's first kernel start to its last kernel end, the
+    median over the calls. (0, None) where the profiler recorded no such
+    kernel."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        ks = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                    if e.device_type == DeviceType.CUDA and name in e.name)
+        if ks and len(ks) % calls == 0:
+            n = len(ks) // calls
+            spans = sorted(max(e for _, e in ks[i:i + n]) - ks[i][0] for i in range(0, len(ks), n))
+            return n, spans[len(spans) // 2] / 1e3
+    return 0, None
+
+
 def fmt_ms(ms):
     return "not measured" if ms is None else f"{ms:.4f}"
 
@@ -369,6 +403,7 @@ def kernel_checks(dev):
     logits = rand(16, 3001, scale=3.0, dtype=f32)
     rows = [_compare("topm_logsoftmax", ops.topm_logsoftmax, ops.topm_logsoftmax_plain,
                      (logits, 4, 3000), atol=1e-4, iters=200, flops=flops_topm)]
+    topm_yardstick(rows[-1], "nemo ALSD, R=16, V=3001, m=4", logits, 4, 3000)
     ties = torch.randint(-3, 4, (16, 3001), generator=gen).to(device=dev, dtype=f32)
     got, want = ops.topm_logsoftmax(ties, 4, 3000), ops.topm_logsoftmax_plain(ties, 4, 3000)
     torch.cuda.synchronize()
@@ -379,6 +414,60 @@ def kernel_checks(dev):
     wide_kernel_checks(rand, dev)
     head_width_checks(rand, dev)
     return rows
+
+
+def topm_yardstick(row, label, logits, m, blank):
+    """Row 3 beside torch.amax over the same logits (one PyTorch reduction
+    reading the same bytes: the floor of any one-launch read of the rows;
+    not the same function, and the port never calls it), events and device
+    ms into ``row["amax_ms"]`` and the log; and one device kernel a call."""
+    import torch
+
+    from reazonspeech_tpu_torch import ops
+
+    def amax():
+        return torch.amax(logits, dim=-1)
+
+    row["amax_ms"] = cuda_ms(amax, 200)
+    n, _ = device_calls(lambda: ops.topm_logsoftmax(logits, m, blank), 20, "topm_kernel")
+    log(f"topm_logsoftmax ({label}): torch.amax over the same logits (a yardstick, not the same "
+        f"function): events ms {row['amax_ms']:.4f}, device ms {fmt_ms(device_ms(amax, 200))}; "
+        f"the kernel's device ms {fmt_ms(row['device_ms'])}; {n} device kernel(s) a call")
+    check(n == 1, f"topm_logsoftmax ({label}): {n} device kernels a call, not one")
+
+
+def joint_yardstick(row, label, args, act):
+    """Row 12 beside the bare fp32 cuBLAS products dec·Wp and z·Wo on the
+    same operands (TF32 off; a yardstick the port never calls: the kernel
+    also applies the activation, the log-softmax and the top-m), events and
+    device ms into ``row["cublas_ms"]`` and the log; the kernel's device
+    kernels a call (at most two) and its span beside its summed device ms."""
+    import torch
+
+    from reazonspeech_tpu_torch import ops
+
+    w_pred, b_pred, w_out, _, enc, dec, m, blank = args
+    acts = {"relu": torch.relu, "tanh": torch.tanh, "sigmoid": torch.sigmoid}
+    z = acts[act](enc + (dec @ w_pred + b_pred))
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        def cublas():
+            torch.matmul(dec, w_pred)
+            torch.matmul(z, w_out)
+
+        row["cublas_ms"] = cuda_ms(cublas, 200)
+        cublas_dev = device_ms(cublas, 200)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    n, span = device_calls(lambda: ops.joint_topm(*args, activation=act, compute_dtype="float32"),
+                           20, "joint_")
+    row["span_ms"] = span
+    log(f"joint_topm ({label}): the bare fp32 cuBLAS products dec.Wp and z.Wo (a yardstick, "
+        f"not the same function): events ms {row['cublas_ms']:.4f}, device ms "
+        f"{fmt_ms(cublas_dev)}; the kernel: {n} device kernels a call, device ms summed "
+        f"{fmt_ms(row['device_ms'])}, span (first start to last end) {fmt_ms(span)}")
+    check(0 < n <= 2, f"joint_topm ({label}): {n} device kernels a call, not at most two")
 
 
 def bf16_tol(want):
@@ -655,9 +744,10 @@ def espnet_kernel_checks(rand, dev):
              ops.relpos_attention_fused_packed_plain, (qkv, pos, bu, bv, lengths, h), 0.03,
              iters=20, label="espnet, dh=64, T=499", flops=flops_relpos)
     logits = rand(80, 2182, scale=3.0, dtype=f32)
-    _compare("topm_logsoftmax", ops.topm_logsoftmax, ops.topm_logsoftmax_plain,
-             (logits, 20, 0), 1e-4, iters=100, label="Graves, R=80, m=20, V=2182",
-             flops=flops_topm)
+    row = _compare("topm_logsoftmax", ops.topm_logsoftmax, ops.topm_logsoftmax_plain,
+                   (logits, 20, 0), 1e-4, iters=100, label="Graves, R=80, m=20, V=2182",
+                   flops=flops_topm)
+    topm_yardstick(row, "Graves, R=80, V=2182, m=20", logits, 20, 0)
     return rows
 
 
@@ -684,6 +774,7 @@ def step_kernel_checks(rand, dev):
         row = _compare("joint_topm", ops.joint_topm, ops.joint_topm_plain, args, 1e-5, iters=200,
                        kwargs=dict(activation=act, compute_dtype="float32"),
                        label=f"{label}, R={r}, H=J={h}, V={v}, m={m}", flops=flops_joint)
+        joint_yardstick(row, label, args, act)
         rows += [row] if label == "nemo ALSD" else []
         if label == "espnet Graves":  # a zero output projection: logits = integer b_out
             tied = (*args[:2], torch.zeros_like(args[2]),
@@ -742,9 +833,10 @@ def wide_kernel_checks(rand, dev):
     f32 = torch.float32
     for label, r, v, m, blank in (("R=16, V=3001, m=40", 16, 3001, 40, 3000),
                                   ("R=4, V=50000, m=40", 4, 50000, 40, 0)):
-        _compare("topm_logsoftmax", ops.topm_logsoftmax, ops.topm_logsoftmax_plain,
-                 (rand(r, v, scale=3.0, dtype=f32), m, blank), 1e-4, iters=20, label=label,
-                 flops=flops_topm)
+        logits = rand(r, v, scale=3.0, dtype=f32)
+        row = _compare("topm_logsoftmax", ops.topm_logsoftmax, ops.topm_logsoftmax_plain,
+                       (logits, m, blank), 1e-4, iters=20, label=label, flops=flops_topm)
+        topm_yardstick(row, label, logits, m, blank)
     for label, r, h, v, m in (("R=16, H=J=640, V=50000, m=40", 16, 640, 50000, 40),
                               ("R=16, H=J=3072, V=3001, m=4", 16, 3072, 3001, 4)):
         _compare("joint_topm", ops.joint_topm, ops.joint_topm_plain,

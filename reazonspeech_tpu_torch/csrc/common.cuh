@@ -22,12 +22,6 @@ __device__ __forceinline__ bool better(float v, int i, float bv, int bi) {
 }
 
 // Warp-wide reductions; every lane returns the same value.
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
-  return v;
-}
-
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
@@ -49,46 +43,10 @@ __device__ __forceinline__ void warp_argmax(float& bv, int& bi) {
   }
 }
 
-// Block-wide reductions over NT threads (a multiple of 32); every thread
-// returns the same value, the warps' results combined in a fixed order.
-// ``s_f``/``s_i`` hold NT / 32 entries. The trailing barrier lets the caller
-// reuse the scratch right away.
-template <int NT>
-__device__ __forceinline__ float block_max(float v, float* s_f) {
-  v = warp_max(v);
-  if (threadIdx.x % 32 == 0) s_f[threadIdx.x / 32] = v;
-  __syncthreads();
-  float r = s_f[0];
-#pragma unroll
-  for (int w = 1; w < NT / 32; ++w) r = fmaxf(r, s_f[w]);
-  __syncthreads();
-  return r;
-}
-
-template <int NT>
-__device__ __forceinline__ float block_sum(float v, float* s_f) {
-  v = warp_sum(v);
-  if (threadIdx.x % 32 == 0) s_f[threadIdx.x / 32] = v;
-  __syncthreads();
-  float r = s_f[0];
-#pragma unroll
-  for (int w = 1; w < NT / 32; ++w) r += s_f[w];
-  __syncthreads();
-  return r;
-}
-
-template <int NT>
-__device__ __forceinline__ int block_min(int v, int* s_i) {
-  v = warp_min(v);
-  if (threadIdx.x % 32 == 0) s_i[threadIdx.x / 32] = v;
-  __syncthreads();
-  int r = s_i[0];
-#pragma unroll
-  for (int w = 1; w < NT / 32; ++w) r = min(r, s_i[w]);
-  __syncthreads();
-  return r;
-}
-
+// The block's best (value, index) in the top-m order over NT threads (a
+// multiple of 32); every thread returns it, the warps' results combined in
+// a fixed order. ``s_f``/``s_i`` hold NT / 32 entries. The trailing barrier
+// lets the caller reuse the scratch right away.
 template <int NT>
 __device__ __forceinline__ void block_argmax(float& bv, int& bi, float* s_f, int* s_i) {
   warp_argmax(bv, bi);

@@ -17,6 +17,7 @@ Nothing here runs at import: this module is imported on machines without
 
 import contextlib
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -29,7 +30,7 @@ from pathlib import Path
 import torch
 
 __all__ = ["KERNELS", "as_dtype", "build_info", "check_cuda", "forced_tile_n", "launch",
-           "launches", "load_library", "stream_of"]
+           "launches", "load_library", "stream_of", "workspace_words"]
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -67,19 +68,25 @@ _SIGNATURES = {
     "rs_ln_dense_add": [_P] * 10 + [_I] * 3 + [_P] * 3 + [_I] * 3 + [_F, _F, _P],
     # r, y, g, b, lengths, out, B, T, D, scale, eps, stream
     "rs_add_ln": [_P] * 6 + [_I] * 3 + [_F, _F, _P],
-    # logits, lp_blank, top_lp, top_tok, f32 scratch, i32 scratch, R, V, m,
-    # blank, is_bf16, stream
+    # logits, lp_blank, top_lp, top_tok, scratch, tickets, R, V, m, blank,
+    # is_bf16, stream
     "rs_topm_logsoftmax": [_P] * 6 + [_I] * 5 + [_P],
     # q, k, qp, pos, v, lengths, out, G, T, qd, pd, dv, heads, scale, stream
     "rs_shared_rel_attention": [_P] * 7 + [_I] * 6 + [_F, _P],
     "rs_shared_rel_attention_blockwise": [_P] * 7 + [_I] * 6 + [_F, _P],
-    # w_pred, b_pred, w_out, b_out, enc, dec, f32 scratch, i32 scratch,
-    # lp_blank, top_lp, top_tok, R, H, J, V, m, blank, activation, stream
+    # w_pred, b_pred, w_out, b_out, enc, dec, scratch, tickets, lp_blank,
+    # top_lp, top_tok, R, H, J, V, m, blank, activation, stream
     "rs_joint_topm": [_P] * 11 + [_I] * 7 + [_P],
     # x, h, c, w_ih, w_hh, bias, h_out, c_out, R, H_in, H, stream
     "rs_lstm_cell_step": [_P] * 8 + [_I] * 3 + [_P],
 }
 KERNELS = tuple(name.removeprefix("rs_") for name in _SIGNATURES)
+# C function -> the sizes it takes: the workspace a kernel's call needs,
+# which the kernel sizes since it decides how it splits its work
+_WORKSPACES = {
+    "rs_topm_workspace": [_I] * 3,  # R, V, m
+    "rs_joint_workspace": [_I] * 4,  # R, J, V, m
+}
 # kernel name -> launches since the last reset (ops.reset_launch_counts)
 launches = dict.fromkeys(KERNELS, 0)
 
@@ -156,6 +163,9 @@ def load_library():
             lib.rs_cuda_error_string.restype = ctypes.c_char_p
             lib.rs_gemm_force_tile_n.argtypes = [ctypes.c_int]
             lib.rs_gemm_force_tile_n.restype = ctypes.c_int
+            for name, argtypes in _WORKSPACES.items():
+                getattr(lib, name).argtypes = argtypes + [ctypes.POINTER(ctypes.c_int)]
+                getattr(lib, name).restype = ctypes.c_longlong
             _lib = lib
     return _lib
 
@@ -175,6 +185,15 @@ def launch(name, *args):
         msg = lib.rs_cuda_error_string(err).decode()
         raise RuntimeError(f"{name}: CUDA error {err} ({msg})")
     launches[name.removeprefix("rs_")] += 1
+
+
+@functools.lru_cache(maxsize=None)
+def workspace_words(kernel, *sizes):
+    """(counters, 32-bit words of scratch) that a call of ``kernel`` ("topm"
+    or "joint") with these sizes needs, as its C code splits the work."""
+    counters = ctypes.c_int(0)
+    words = getattr(load_library(), f"rs_{kernel}_workspace")(*sizes, ctypes.byref(counters))
+    return counters.value, words
 
 
 @contextlib.contextmanager
@@ -199,9 +218,10 @@ def as_dtype(dtype):
     return getattr(torch, dtype) if isinstance(dtype, str) else dtype
 
 
-def check_cuda(name, t, dtype, shape=None, device=None):
-    """Raise unless ``t`` is a contiguous, 16-byte aligned CUDA tensor of
-    ``dtype`` (and ``shape``/``device`` when given)."""
+def check_cuda(name, t, dtype, shape=None, device=None, aligned=True):
+    """Raise unless ``t`` is a contiguous CUDA tensor of ``dtype`` (and
+    ``shape``/``device`` when given), 16-byte aligned unless ``aligned`` is
+    false."""
     if not isinstance(t, torch.Tensor) or not t.is_cuda:
         raise ValueError(f"{name}: expected a CUDA tensor")
     if device is not None and t.device != device:
@@ -212,5 +232,5 @@ def check_cuda(name, t, dtype, shape=None, device=None):
         raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {tuple(shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: must be contiguous")
-    if t.data_ptr() % 16:
+    if aligned and t.data_ptr() % 16:
         raise ValueError(f"{name}: data must be 16-byte aligned")

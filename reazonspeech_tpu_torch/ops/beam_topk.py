@@ -6,27 +6,62 @@ logits, the fp32 log-sum-exp, the blank log-prob, and the top-m label
 log-probs with blank excluded, ties going to the LOWEST index (the order of
 ``jax.lax.top_k``; ``torch.topk`` promises no order among equal values on
 CUDA, and bf16 joint logits tie often). On a CUDA tensor it launches the
-hand-written kernel in ``csrc/beam_topk.cu``; on a CPU tensor it runs
+hand-written kernel in ``csrc/beam_topk.cu`` (one launch at any V; the
+logits need not be 16-byte aligned); on a CPU tensor it runs
 :func:`topm_logsoftmax_plain`.
 
 ``joint_topm`` is the port of ``reazonspeech_tpu.ops.beam_topk.joint_topm``:
 the joint's prediction projection, activation and output projection before
 the same top-m, the beam decoders' whole per-step tail when
 ``joint_impl="pallas"``, in fp32. On a CUDA tensor it launches the kernel in
-``csrc/joint_topm.cu`` (fp32 only: a bf16 ``compute_dtype`` raises); on a CPU
-tensor it runs :func:`joint_topm_plain`, which takes both dtypes.
+``csrc/joint_topm.cu`` (two launches, the merge inside the second; fp32
+only: a bf16 ``compute_dtype`` raises); on a CPU tensor it runs
+:func:`joint_topm_plain`, which takes both dtypes.
+
+A row split over blocks (``topm_logsoftmax`` past 4,096 columns, and every
+``joint_topm`` call) is merged by the last of its blocks to finish, found by
+an atomic ticket. The tickets and the partials live in a workspace kept per
+(kernel, device, stream) and sized by the C code, so no call allocates one
+once it is large enough and two streams never share one; the tickets are
+zeroed when allocated and the kernels alone change them from then on.
 """
 
 import torch
 
-from ._kernels import as_dtype, check_cuda, launch, stream_of
+from ._kernels import as_dtype, check_cuda, launch, stream_of, workspace_words
 
 __all__ = ["joint_topm", "joint_topm_plain", "topm_logsoftmax", "topm_logsoftmax_plain"]
 
 _NEG = -1.0e30  # value of an excluded column (blank, already picked)
-_ROW_TILE = 8192  # topm_logsoftmax's kernel: columns of a row per block (more: a merge)
-_TILE = 32  # joint_topm's kernel: columns of V per block
 _ACTIVATIONS = ("relu", "tanh", "sigmoid")  # their codes in csrc/joint_topm.cu
+
+_workspaces = {}  # (kernel, device index, stream) -> [tickets, scratch]
+
+
+def _workspace(kernel, dev, stream, *sizes):
+    """(scratch, tickets) addresses of ``kernel``'s workspace for the calling
+    stream and a call of these sizes (None, None where it needs none). A
+    buffer is replaced only to grow (the old one is freed in stream order);
+    tickets are int32 zeros when allocated."""
+    counters, words = workspace_words(kernel, *sizes)
+    if counters == 0:
+        return None, None
+    ws = _workspaces.setdefault((kernel, dev.index, stream), [None, None])
+    if ws[0] is None or ws[0].numel() < counters:
+        ws[0] = torch.zeros((counters,), dtype=torch.int32, device=dev)
+    if ws[1] is None or ws[1].numel() < words:
+        ws[1] = torch.empty((words,), dtype=torch.int32, device=dev)
+    return ws[1].data_ptr(), ws[0].data_ptr()
+
+
+def _launch(dev, name, *args):
+    """launch() on ``dev``: a kernel goes to the calling thread's current
+    device, so switch to ``dev`` where it is not that one."""
+    if dev.index == torch.cuda.current_device():
+        launch(name, *args)
+    else:
+        with torch.cuda.device(dev):
+            launch(name, *args)
 
 
 def topm_logsoftmax_plain(logits, m, blank):
@@ -67,23 +102,16 @@ def topm_logsoftmax(logits, m, blank):
         raise ValueError(f"topm_logsoftmax: m={m}, blank={blank}, V={v} out of range")
     if logits.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"topm_logsoftmax: dtype {logits.dtype} not supported")
-    check_cuda("logits", logits, logits.dtype, (r, v))
-    dev = logits.device
-    lp_blank = torch.empty((r,), dtype=torch.float32, device=dev)
-    top_lp = torch.empty((r, m), dtype=torch.float32, device=dev)
+    check_cuda("logits", logits, logits.dtype, (r, v), aligned=False)
+    dev, f32 = logits.device, torch.float32
+    lp_blank = torch.empty((r,), dtype=f32, device=dev)
+    top_lp = torch.empty((r, m), dtype=f32, device=dev)
     top_tok = torch.empty((r, m), dtype=torch.int32, device=dev)
-    tiles = -(-v // _ROW_TILE)
-    f32_scratch = i32_scratch = None  # a row of one tile needs no partials
-    if tiles > 1:
-        f32_scratch = torch.empty((r * (2 * tiles + 1 + tiles * m),), dtype=torch.float32,
-                                  device=dev)
-        i32_scratch = torch.empty((r * tiles * (m + 1),), dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
-        launch("rs_topm_logsoftmax", logits.data_ptr(), lp_blank.data_ptr(),
-               top_lp.data_ptr(), top_tok.data_ptr(),
-               None if f32_scratch is None else f32_scratch.data_ptr(),
-               None if i32_scratch is None else i32_scratch.data_ptr(), r, v, m, blank,
-               int(logits.dtype == torch.bfloat16), stream_of(logits))
+    stream = stream_of(logits)
+    scratch, tickets = _workspace("topm", dev, stream, r, v, m)
+    _launch(dev, "rs_topm_logsoftmax", logits.data_ptr(), lp_blank.data_ptr(), top_lp.data_ptr(),
+            top_tok.data_ptr(), scratch, tickets, r, v, m, blank,
+            int(logits.dtype == torch.bfloat16), stream)
     return lp_blank, top_lp, top_tok
 
 
@@ -140,16 +168,13 @@ def joint_topm(w_pred, b_pred, w_out, b_out, enc_proj_row, dec_out, m, blank, *,
                            ("w_out", w_out, (j, v)), ("b_out", b_out, (v,)),
                            ("enc_proj_row", enc_proj_row, (r, j)), ("dec_out", dec_out, (r, hid))):
         check_cuda(name, t, f32, shape, dev)
-    tiles = -(-v // _TILE)
-    f32_scratch = torch.empty((r * (j + 2 * tiles + 1 + tiles * m),), dtype=f32, device=dev)
-    i32_scratch = torch.empty((r * tiles * (m + 1),), dtype=torch.int32, device=dev)
+    stream = stream_of(enc_proj_row)
+    scratch, tickets = _workspace("joint", dev, stream, r, j, v, m)
     lp_blank = torch.empty((r,), dtype=f32, device=dev)
     top_lp = torch.empty((r, m), dtype=f32, device=dev)
     top_tok = torch.empty((r, m), dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
-        launch("rs_joint_topm", w_pred.data_ptr(), b_pred.data_ptr(), w_out.data_ptr(),
-               b_out.data_ptr(), enc_proj_row.data_ptr(), dec_out.data_ptr(),
-               f32_scratch.data_ptr(), i32_scratch.data_ptr(), lp_blank.data_ptr(),
-               top_lp.data_ptr(), top_tok.data_ptr(), r, hid, j, v, m, blank,
-               _ACTIVATIONS.index(activation), stream_of(enc_proj_row))
+    _launch(dev, "rs_joint_topm", w_pred.data_ptr(), b_pred.data_ptr(), w_out.data_ptr(),
+            b_out.data_ptr(), enc_proj_row.data_ptr(), dec_out.data_ptr(), scratch, tickets,
+            lp_blank.data_ptr(), top_lp.data_ptr(), top_tok.data_ptr(), r, hid, j, v, m, blank,
+            _ACTIVATIONS.index(activation), stream)
     return lp_blank, top_lp, top_tok

@@ -95,8 +95,9 @@ def test_topm_kernel_matches_plain(dev, dtype, integer):
     torch.testing.assert_close(got[1], want[1], atol=1e-4, rtol=0)
 
 
-# (r, v, m, blank, dtype): m past 32 and V past one 8,192-column tile (the
-# merge launch), bf16 and fp32, m > V (the EXCLUDED pool after the labels)
+# (r, v, m, blank, dtype): m past the largest list (40: the rounds path) and
+# V past one row part (the last block's merge), bf16 and fp32, m > V (the
+# EXCLUDED pool after the labels)
 TOPM_WIDE = [(16, 3001, 40, 3000, torch.float32), (16, 3001, 64, 0, torch.bfloat16),
              (4, 50000, 40, 0, torch.float32), (4, 50000, 64, 49999, torch.bfloat16),
              (3, 50000, 4, 17, torch.float32), (2, 8300, 8310, 8299, torch.float32),
@@ -133,6 +134,124 @@ def test_topm_kernel_excluded_pool(dev, v):
     torch.cuda.synchronize()
     assert torch.equal(got[2], want[2])
     torch.testing.assert_close(got[1], want[1], atol=1e-4, rtol=0)
+
+
+def _device_kernels(fn, name, calls=10):
+    """The device kernels named ``*name*`` that one fn() call runs
+    (torch.profiler over ``calls`` calls; a profile that records none, which
+    the tracer does now and then, is taken again)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(5):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        n = sum(e.count for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA and name in e.key)
+        if n:
+            return n / calls
+    pytest.fail("the profiler recorded no device kernel")
+
+
+def _check_topm(got, want):
+    assert got[1].shape == want[1].shape and torch.equal(got[2], want[2])
+    torch.testing.assert_close(got[0], want[0], atol=1e-4, rtol=0)
+    torch.testing.assert_close(got[1], want[1], atol=1e-4, rtol=0)
+
+
+# m = 1, the served sizes (4, 20, 40) and one past each (41, 64: rounds)
+TOPM_MS = [1, 4, 5, 20, 21, 40, 41, 64]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m", TOPM_MS)
+def test_topm_kernel_list_sizes(dev, m, dtype):
+    """Picks from keys (m <= 40) and the rounds path, on rows of one part
+    (V = 3,001, not 16-byte aligned) and of 13 (V = 50,000: at m = 40 the
+    merge's 520 slots are cut down a chunk at a time), blank last and
+    first."""
+    gen = torch.Generator().manual_seed(m)
+    for r, v, blank in ((16, 3001, 3000), (3, 50000, 0)):
+        x = (torch.randn((r, v), generator=gen) * 3.0).to(device=dev, dtype=dtype)
+        _check_topm(topm_logsoftmax(x, m, blank), topm_logsoftmax_plain(x, m, blank))
+
+
+@pytest.mark.parametrize("v", [3001, 50000])
+@pytest.mark.parametrize("m", [4, 20, 40, 64])
+def test_topm_kernel_integer_ties(dev, v, m):
+    """Integer logits in [-3, 3]: every pick is a tie that the lowest column
+    must win, across lanes, warps and (V = 50,000) blocks."""
+    gen = torch.Generator().manual_seed(v + m)
+    x = torch.randint(-3, 4, (4, v), generator=gen).float().to(dev)
+    for blank in (0, v - 1):
+        got = topm_logsoftmax(x, m, blank)
+        _check_topm(got, topm_logsoftmax_plain(x, m, blank))
+        assert (got[2][:, 1:] > got[2][:, :-1]).all()  # all tied at 3
+
+
+@pytest.mark.parametrize("v", [300, 3001, 50000])
+@pytest.mark.parametrize("m", [4, 30, 64])
+def test_topm_kernel_all_excluded(dev, v, m):
+    """Rows whose every value is <= -1e30 (-1e30, -1e31, -inf): no candidate,
+    so every pick is the EXCLUDED pool's lowest column."""
+    x = torch.full((3, v), -1e30)
+    x[0, : v // 2] = float("-inf")
+    x[1, 1::2] = -1e31
+    x[2, :7] = -1e31
+    x = x.to(dev)
+    for blank in (0, 5, v - 1):
+        got = topm_logsoftmax(x, m, blank)
+        _check_topm(got, topm_logsoftmax_plain(x, m, blank))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("v,m", [(3001, 4), (3001, 20), (50000, 40), (50000, 64)])
+def test_topm_kernel_unaligned_view(dev, v, m, dtype):
+    """Logits that start one element past a 16-byte boundary: the scalar
+    head, the vectors and the tail of every row shift."""
+    gen = torch.Generator().manual_seed(v + m)
+    x = _misaligned((torch.randn((5, v), generator=gen) * 3.0).to(device=dev, dtype=dtype))
+    assert x.data_ptr() % 16
+    _check_topm(topm_logsoftmax(x, m, 3), topm_logsoftmax_plain(x, m, 3))
+
+
+@pytest.mark.parametrize("v,m", [(3001, 4), (2182, 20), (50000, 40), (50000, 64)])
+def test_topm_kernel_one_launch_deterministic(dev, v, m):
+    """One device kernel a call at every V, and two calls bit-equal (the
+    last block's merge does not depend on which block finished last)."""
+    gen = torch.Generator().manual_seed(v)
+    x = (torch.randn((16, v), generator=gen) * 3.0).to(dev)
+    reset_launch_counts()
+    first = topm_logsoftmax(x, m, 0)
+    assert launch_counts()["topm_logsoftmax"] == 1
+    assert _device_kernels(lambda: topm_logsoftmax(x, m, 0), "topm_kernel") == 1
+    for _ in range(3):
+        again = topm_logsoftmax(x, m, 0)
+        assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+@pytest.mark.parametrize("v,m", [(3001, 4), (50000, 40), (50000, 64)])
+def test_topm_kernel_two_streams(dev, v, m):
+    """Two streams at once, each with its own inputs and workspace (tickets
+    and partials): each result equals the twin's."""
+    gen = torch.Generator().manual_seed(v + 1)
+    xs = [(torch.randn((8, v), generator=gen) * 3.0).to(dev) for _ in range(2)]
+    streams = [torch.cuda.Stream() for _ in range(2)]
+    torch.cuda.synchronize()
+    outs = [[], []]
+    for _ in range(20):
+        for i, st in enumerate(streams):
+            with torch.cuda.stream(st):
+                outs[i].append(topm_logsoftmax(xs[i], m, 0))
+    torch.cuda.synchronize()
+    for x, got in zip(xs, outs):
+        want = topm_logsoftmax_plain(x, m, 0)
+        for g in got:
+            _check_topm(g, want)
 
 
 def _bf16_tol(want):
@@ -725,6 +844,87 @@ def test_joint_topm_kernel_ties_to_lowest_index(dev, blank):
     torch.cuda.synchronize()
     assert torch.equal(got[2], want[2])
     assert (got[2][:, 1:] > got[2][:, :-1]).all()  # all tied at 3: increasing columns
+
+
+@pytest.mark.parametrize("m", [1, 4, 5, 20, 21, 40, 41])
+@pytest.mark.parametrize("r,h,v,blank,act", [(16, 640, 3001, 3000, "relu"),
+                                             (4, 256, 2182, 0, "tanh")])
+def test_joint_topm_kernel_list_sizes(dev, r, h, v, blank, act, m):
+    """The served sizes and one past each, at nemo's and espnet's shapes:
+    the merge's slots (94 or 69 tiles of min(m, 32)) in one chunk of keys,
+    or cut down a chunk at a time past 512 (m >= 20)."""
+    args = _joint_inputs(dev, r, h, h, v, seed=v + m, act=act, blank=blank, m=m)
+    kw = dict(activation=act, compute_dtype="float32")
+    got = joint_topm(*args, m, blank, **kw)
+    want = joint_topm_plain(*args, m, blank, **kw)
+    assert torch.equal(got[2], want[2])
+    for g, w in zip(got[:2], want[:2]):
+        assert _max_err(g, w) <= 1e-5
+
+
+@pytest.mark.parametrize("m", [4, 40])
+@pytest.mark.parametrize("v", [3001, 2182])
+def test_joint_topm_kernel_integer_ties_across_tiles(dev, v, m):
+    """Exact ties across tiles and merge chunks: logits = b_out, integers in
+    [-3, 3], blank first and last."""
+    w_pred, b_pred, w_out, _, enc, dec = _joint_inputs(dev, 16, 256, 256, v, seed=v)
+    gen = torch.Generator().manual_seed(m)
+    b_out = torch.randint(-3, 4, (v,), generator=gen).to(device=dev, dtype=torch.float32)
+    args = (w_pred, b_pred, torch.zeros_like(w_out), b_out, enc, dec)
+    for blank in (0, v - 1):
+        got = joint_topm(*args, m, blank, activation="relu", compute_dtype="float32")
+        want = joint_topm_plain(*args, m, blank, activation="relu", compute_dtype="float32")
+        assert torch.equal(got[2], want[2])
+        assert (got[2][:, 1:] > got[2][:, :-1]).all()
+
+
+def test_joint_topm_kernel_excluded_pool(dev):
+    """Logits = b_out of -1e30 and -1e31 but for 3 finite columns: past them
+    every pick is the EXCLUDED pool's lowest column."""
+    w_pred, b_pred, w_out, _, enc, dec = _joint_inputs(dev, 4, 256, 256, 2182, seed=3)
+    b_out = torch.full((2182,), -1e30)
+    b_out[1::2] = -1e31
+    b_out[[100, 1500, 2000]] = torch.tensor([0.5, -2.0, 1.0])
+    args = (w_pred, b_pred, torch.zeros_like(w_out), b_out.to(dev), enc, dec)
+    for m in (4, 30):
+        got = joint_topm(*args, m, 7, activation="tanh", compute_dtype="float32")
+        want = joint_topm_plain(*args, m, 7, activation="tanh", compute_dtype="float32")
+        assert torch.equal(got[2], want[2]) and (got[2][:, 3:] == 0).all()
+        torch.testing.assert_close(got[1], want[1], atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("r,h,v,m", [(16, 640, 3001, 4), (4, 256, 2182, 20),
+                                     (16, 640, 50000, 40)])
+def test_joint_topm_kernel_launches_deterministic(dev, r, h, v, m):
+    """At most two device kernels a call (no merge launch); calls bit-equal
+    (the last block's merge does not depend on which block finished last)."""
+    args = _joint_inputs(dev, r, h, h, v, seed=r + v, blank=0, m=m)
+    kw = dict(activation="tanh", compute_dtype="float32")
+    reset_launch_counts()
+    first = joint_topm(*args, m, 0, **kw)
+    assert launch_counts()["joint_topm"] == 1
+    assert _device_kernels(lambda: joint_topm(*args, m, 0, **kw), "joint_") <= 2
+    for _ in range(3):
+        again = joint_topm(*args, m, 0, **kw)
+        assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+def test_joint_topm_kernel_two_streams(dev):
+    """Two streams at once, each with its own inputs and workspace."""
+    args = [_joint_inputs(dev, 16, 640, 640, 3001, seed=s, blank=3000, m=4) for s in (1, 2)]
+    kw = dict(activation="relu", compute_dtype="float32")
+    streams = [torch.cuda.Stream() for _ in range(2)]
+    torch.cuda.synchronize()
+    outs = [[], []]
+    for _ in range(20):
+        for i, st in enumerate(streams):
+            with torch.cuda.stream(st):
+                outs[i].append(joint_topm(*args[i], 4, 3000, **kw))
+    torch.cuda.synchronize()
+    for a, got in zip(args, outs):
+        want = joint_topm_plain(*a, 4, 3000, **kw)
+        for g in got:
+            assert torch.equal(g[2], want[2]) and _max_err(g[1], want[1]) <= 1e-5
 
 
 # (r, h_in, h): nemo ALSD, espnet Graves, ragged R, more rows than a tile,
