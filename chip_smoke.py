@@ -24,7 +24,8 @@ Phases, each of which fails the run (nonzero exit, no result line):
    kernels at the find_blank pass's T=499, and the top-m at R=80, V=2,182;
    then the beam decoders' step kernels in fp32: the fused joint + top-m at
    nemo ALSD's, espnet Graves' and k2 ALSD's shapes and on exact ties, and
-   the LSTM cell at nemo's and espnet's predictors beside torch.lstm_cell;
+   the LSTM cell at nemo's and espnet's predictors and at nemo ALSD beam 40
+   x 4 lanes (R = 160) beside torch.lstm_cell;
    then the top-m and step kernels past their former size caps (m = 40,
    V = 50,000, H = J = 3,072, H_in = H = 1,536). The top-m (row 3) is
    also timed beside torch.amax over the same logits (one reduction over
@@ -758,8 +759,10 @@ def step_kernel_checks(rand, dev):
     relu, m = 4), espnet Graves (R = 4 lanes, H = J = 256, V = 2,182, blank
     first, tanh, m = beam 20) and k2 ALSD (R = 16, H = J = 512, V = 2,179,
     blank first, tanh, m = 4), and on exact ties; the LSTM cell (row 13) at
-    nemo's (R = 16, H = 640) and espnet's (R = 4, H = 256) predictors, with
-    torch.lstm_cell (weights as [4H, in]) timed beside it."""
+    nemo's (R = 16, H = 640) and espnet's (R = 4, H = 256) predictors and at
+    nemo ALSD beam 40 x 4 lanes (R = 160, H = 640), each with its bound and
+    torch.lstm_cell (weights as [4H, in]) timed beside it, and one device
+    kernel a call."""
     import torch
 
     from reazonspeech_tpu_torch import ops
@@ -784,7 +787,8 @@ def step_kernel_checks(rand, dev):
             torch.cuda.synchronize()
             check(torch.equal(got[2], want[2]), "joint_topm: tie order differs from the twin")
             log("joint_topm integer-tie case (m=20): indices equal")
-    for label, r, h in (("nemo ALSD", 16, 640), ("espnet Graves", 4, 256)):
+    for label, r, h in (("nemo ALSD", 16, 640), ("espnet Graves", 4, 256),
+                        ("nemo ALSD beam 40 x 4 lanes", 160, 640)):
         w_ih, w_hh = rand(h, 4 * h, scale=h ** -0.5, dtype=f32), rand(h, 4 * h, scale=h ** -0.5,
                                                                       dtype=f32)
         bias, x = rand(4 * h, scale=0.1, dtype=f32), rand(r, h, dtype=f32)
@@ -795,6 +799,10 @@ def step_kernel_checks(rand, dev):
                        kwargs=dict(compute_dtype="float32"), label=f"{label}, R={r}, H={h}",
                        flops=flops_lstm,
                        library=lambda: torch.lstm_cell(x, (hp, cp), w_ih_t, w_hh_t, bias, zero))
+        n, _ = device_calls(lambda: ops.lstm_cell_step(w_ih, w_hh, bias, x, hp, cp,
+                                                       compute_dtype="float32"), 20, "lstm_cell")
+        log(f"lstm_cell_step ({label}, R={r}, H={h}): {n} device kernel(s) a call")
+        check(n == 1, f"lstm_cell_step ({label}): {n} device kernels a call, not one")
         rows += [row] if label == "nemo ALSD" else []
     return rows
 

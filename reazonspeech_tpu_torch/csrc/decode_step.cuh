@@ -1,5 +1,5 @@
-// The product of a few decode rows with a slice of weight columns, shared by
-// the decode-step kernels (lstm_step.cu, joint_topm.cu).
+// The product of a few decode rows with a slice of weight columns, under the
+// fused joint's tile kernel (joint_topm.cu).
 //
 // A block of NT = 512 threads computes out[r][c] = Σ_k A[r, k] · W[k, col(c)]
 // for RT = 16 rows of A and the NC = 32 columns col(0..31) of W that its

@@ -30,7 +30,7 @@ from pathlib import Path
 import torch
 
 __all__ = ["KERNELS", "as_dtype", "build_info", "check_cuda", "forced_tile_n", "launch",
-           "launches", "load_library", "stream_of", "workspace_words"]
+           "launch_on", "launches", "load_library", "stream_of", "workspace_words"]
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -185,6 +185,16 @@ def launch(name, *args):
         msg = lib.rs_cuda_error_string(err).decode()
         raise RuntimeError(f"{name}: CUDA error {err} ({msg})")
     launches[name.removeprefix("rs_")] += 1
+
+
+def launch_on(dev, name, *args):
+    """launch() on ``dev``: a kernel goes to the calling thread's current
+    device, so switch to ``dev`` only where it is not that one."""
+    if dev.index == torch.cuda.current_device():
+        launch(name, *args)
+    else:
+        with torch.cuda.device(dev):
+            launch(name, *args)
 
 
 @functools.lru_cache(maxsize=None)

@@ -28,7 +28,7 @@ zeroed when allocated and the kernels alone change them from then on.
 
 import torch
 
-from ._kernels import as_dtype, check_cuda, launch, stream_of, workspace_words
+from ._kernels import as_dtype, check_cuda, launch_on, stream_of, workspace_words
 
 __all__ = ["joint_topm", "joint_topm_plain", "topm_logsoftmax", "topm_logsoftmax_plain"]
 
@@ -52,16 +52,6 @@ def _workspace(kernel, dev, stream, *sizes):
     if ws[1] is None or ws[1].numel() < words:
         ws[1] = torch.empty((words,), dtype=torch.int32, device=dev)
     return ws[1].data_ptr(), ws[0].data_ptr()
-
-
-def _launch(dev, name, *args):
-    """launch() on ``dev``: a kernel goes to the calling thread's current
-    device, so switch to ``dev`` where it is not that one."""
-    if dev.index == torch.cuda.current_device():
-        launch(name, *args)
-    else:
-        with torch.cuda.device(dev):
-            launch(name, *args)
 
 
 def topm_logsoftmax_plain(logits, m, blank):
@@ -109,9 +99,9 @@ def topm_logsoftmax(logits, m, blank):
     top_tok = torch.empty((r, m), dtype=torch.int32, device=dev)
     stream = stream_of(logits)
     scratch, tickets = _workspace("topm", dev, stream, r, v, m)
-    _launch(dev, "rs_topm_logsoftmax", logits.data_ptr(), lp_blank.data_ptr(), top_lp.data_ptr(),
-            top_tok.data_ptr(), scratch, tickets, r, v, m, blank,
-            int(logits.dtype == torch.bfloat16), stream)
+    launch_on(dev, "rs_topm_logsoftmax", logits.data_ptr(), lp_blank.data_ptr(),
+              top_lp.data_ptr(), top_tok.data_ptr(), scratch, tickets, r, v, m, blank,
+              int(logits.dtype == torch.bfloat16), stream)
     return lp_blank, top_lp, top_tok
 
 
@@ -173,8 +163,8 @@ def joint_topm(w_pred, b_pred, w_out, b_out, enc_proj_row, dec_out, m, blank, *,
     lp_blank = torch.empty((r,), dtype=f32, device=dev)
     top_lp = torch.empty((r, m), dtype=f32, device=dev)
     top_tok = torch.empty((r, m), dtype=torch.int32, device=dev)
-    _launch(dev, "rs_joint_topm", w_pred.data_ptr(), b_pred.data_ptr(), w_out.data_ptr(),
-            b_out.data_ptr(), enc_proj_row.data_ptr(), dec_out.data_ptr(), scratch, tickets,
-            lp_blank.data_ptr(), top_lp.data_ptr(), top_tok.data_ptr(), r, hid, j, v, m, blank,
-            _ACTIVATIONS.index(activation), stream)
+    launch_on(dev, "rs_joint_topm", w_pred.data_ptr(), b_pred.data_ptr(), w_out.data_ptr(),
+              b_out.data_ptr(), enc_proj_row.data_ptr(), dec_out.data_ptr(), scratch, tickets,
+              lp_blank.data_ptr(), top_lp.data_ptr(), top_tok.data_ptr(), r, hid, j, v, m, blank,
+              _ACTIVATIONS.index(activation), stream)
     return lp_blank, top_lp, top_tok

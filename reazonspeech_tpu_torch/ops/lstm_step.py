@@ -7,11 +7,15 @@ their LSTM predictor one token a step with it when ``lstm_impl="pallas"``,
 in fp32. On a CUDA tensor it launches the hand-written kernel in
 ``csrc/lstm_step.cu`` (fp32 only: a bf16 ``compute_dtype`` raises); on a CPU
 tensor it runs :func:`lstm_cell_step_plain`, which takes both dtypes.
+
+The kernel splits the gate columns over clusters of blocks and the depth
+H_in + H over a cluster's blocks; it picks the split itself, from the widths
+and the shared memory a block may hold.
 """
 
 import torch
 
-from ._kernels import as_dtype, check_cuda, launch, stream_of
+from ._kernels import as_dtype, check_cuda, launch_on, stream_of
 
 __all__ = ["lstm_cell_step", "lstm_cell_step_plain"]
 
@@ -52,8 +56,7 @@ def lstm_cell_step(w_ih, w_hh, bias, x, h, c, *, compute_dtype="bfloat16"):
         check_cuda(name, t, f32, shape, dev)
     h_new = torch.empty((r, hid), dtype=f32, device=dev)
     c_new = torch.empty((r, hid), dtype=f32, device=dev)
-    with torch.cuda.device(dev):
-        launch("rs_lstm_cell_step", x.data_ptr(), h.data_ptr(), c.data_ptr(), w_ih.data_ptr(),
-               w_hh.data_ptr(), bias.data_ptr(), h_new.data_ptr(), c_new.data_ptr(), r, h_in,
-               hid, stream_of(x))
+    launch_on(dev, "rs_lstm_cell_step", x.data_ptr(), h.data_ptr(), c.data_ptr(),
+              w_ih.data_ptr(), w_hh.data_ptr(), bias.data_ptr(), h_new.data_ptr(),
+              c_new.data_ptr(), r, h_in, hid, stream_of(x))
     return h_new, c_new

@@ -6,6 +6,8 @@ Marked ``cuda``: they skip where no GPU is present. On a machine with one
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
 """
 
+import ctypes
+
 import numpy as np
 import pytest
 import torch
@@ -19,7 +21,7 @@ from reazonspeech_tpu_torch.ops import (
     shared_rel_attention_blockwise, shared_rel_attention_blockwise_plain,
     shared_rel_attention_plain, topm_logsoftmax, topm_logsoftmax_plain,
 )
-from reazonspeech_tpu_torch.ops._kernels import forced_tile_n
+from reazonspeech_tpu_torch.ops._kernels import forced_tile_n, load_library
 from reazonspeech_tpu_torch.ops.relpos_attention import (
     relpos_attention, relpos_attention_blockwise, relpos_attention_blockwise_plain,
     relpos_attention_plain,
@@ -928,37 +930,100 @@ def test_joint_topm_kernel_two_streams(dev):
 
 
 # (r, h_in, h): nemo ALSD, espnet Graves, ragged R, more rows than a tile,
-# a depth of 3,072 (two chunks) and widths that are not multiples of 4
+# a depth of 3,072, widths that are not multiples of 4, and nemo's width at
+# ALSD beam 40 x 4 lanes and beam 10 x 4 (every row tile on one W slice)
 LSTM_SHAPES = [(16, 640, 640), (4, 256, 256), (1, 640, 640), (5, 256, 256), (37, 128, 384),
-               (16, 1536, 1536), (5, 1536, 1536), (4, 130, 258)]
+               (16, 1536, 1536), (5, 1536, 1536), (4, 130, 258), (160, 640, 640),
+               (40, 640, 640)]
+
+
+def _lstm_inputs(r, h_in, h, seed):
+    """fp32 inputs; past a depth of 1,280 (nemo's) the weights shrink by
+    sqrt(1280 / depth), so that the gates keep the spread they have at the
+    paths' shapes."""
+    gen = torch.Generator().manual_seed(seed)
+    f32 = torch.float32
+    scale = 0.1 * min(1.0, (1280 / (h_in + h)) ** 0.5)
+    return (_rand(gen, h_in, 4 * h, scale=scale, dtype=f32),
+            _rand(gen, h, 4 * h, scale=scale, dtype=f32), _rand(gen, 4 * h, scale=0.1, dtype=f32),
+            _rand(gen, r, h_in, dtype=f32), _rand(gen, r, h, dtype=f32),
+            _rand(gen, r, h, dtype=f32))
+
+
+def _check_lstm(got, args):
+    """h' and c' within 1e-5 of the twin (the gate sums in another order)
+    and of torch.lstm_cell, the same cell with the weights as [4H, in]."""
+    w_ih, w_hh, bias, x, hp, cp = args
+    want = lstm_cell_step_plain(*args, compute_dtype="float32")
+    lib = torch.lstm_cell(x, (hp, cp), w_ih.t().contiguous(), w_hh.t().contiguous(), bias,
+                          torch.zeros_like(bias))
+    torch.cuda.synchronize()
+    for g, w, ref in zip(got, want, lib):
+        assert g.shape == hp.shape and g.dtype == torch.float32
+        assert _max_err(g, w) <= 1e-5
+        assert _max_err(g, ref) <= 1e-5
 
 
 @pytest.mark.parametrize("r,h_in,h", LSTM_SHAPES)
 def test_lstm_cell_kernel_matches_plain(dev, r, h_in, h):
-    """fp32: h' and c' within 1e-5 of the twin (the gate sums in another
-    order); also within 1e-5 of torch.lstm_cell, the same cell with the
-    weights as [4H, in]. Past a depth of 1,280 (nemo's) the weights shrink
-    by sqrt(1280 / depth), so that the gates keep the spread they have at
-    the paths' shapes."""
-    gen = torch.Generator().manual_seed(r + h)
-    f32 = torch.float32
-    scale = 0.1 * min(1.0, (1280 / (h_in + h)) ** 0.5)
-    w_ih, w_hh = _rand(gen, h_in, 4 * h, scale=scale, dtype=f32), _rand(gen, h, 4 * h, scale=scale,
-                                                                         dtype=f32)
-    bias = _rand(gen, 4 * h, scale=0.1, dtype=f32)
-    x, hp, cp = _rand(gen, r, h_in, dtype=f32), _rand(gen, r, h, dtype=f32), _rand(gen, r, h,
-                                                                                  dtype=f32)
+    """fp32, one launch a call, within 1e-5 of the twin and of
+    torch.lstm_cell; repeated calls bit-equal (the sums run in a fixed
+    order, with no atomics)."""
+    args = _lstm_inputs(r, h_in, h, seed=r + h)
     reset_launch_counts()
-    got = lstm_cell_step(w_ih, w_hh, bias, x, hp, cp, compute_dtype="float32")
-    want = lstm_cell_step_plain(w_ih, w_hh, bias, x, hp, cp, compute_dtype="float32")
-    lib = torch.lstm_cell(x, (hp, cp), w_ih.t().contiguous(), w_hh.t().contiguous(), bias,
-                          torch.zeros_like(bias))
-    torch.cuda.synchronize()
+    got = lstm_cell_step(*args, compute_dtype="float32")
     assert launch_counts()["lstm_cell_step"] == 1
-    for g, w, ref in zip(got, want, lib):
-        assert g.shape == (r, h) and g.dtype == f32
-        assert _max_err(g, w) <= 1e-5
-        assert _max_err(g, ref) <= 1e-5
+    _check_lstm(got, args)
+    for _ in range(3):
+        again = lstm_cell_step(*args, compute_dtype="float32")
+        assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+# (r, h_in, h, ranks, fills): the kernel's splits, reached through the
+# widths: 3 and 5 ranks (the pushes one float at a time, also at widths not
+# multiples of 4), 6 (uneven units a rank), the deepest slices the ring
+# holds whole (11 stages; 10 at widths not multiples of 4) and the stages
+# through the ring in two fills a row tile past them (W copied again for
+# each row tile), over several tiles
+LSTM_SPLITS = [(4, 64, 32, 3, 1), (4, 96, 64, 5, 1), (5, 66, 34, 5, 1), (16, 64, 128, 6, 1),
+               (40, 1408, 1408, 8, 1), (40, 1440, 1440, 8, 2), (37, 1536, 1536, 8, 2),
+               (37, 1278, 1278, 8, 1), (37, 1290, 1290, 8, 2), (37, 130, 258, 8, 1)]
+
+
+@pytest.mark.parametrize("r,h_in,h,ranks,fills", LSTM_SPLITS)
+def test_lstm_cell_kernel_splits(dev, r, h_in, h, ranks, fills):
+    """The split the kernel picks (clusters of ``ranks`` blocks, ``fills``
+    of its ring a row tile) as tests/test_torch_lstm_split.py models it;
+    h' and c' within 1e-5 of the twin and torch.lstm_cell, bit-equal when
+    repeated."""
+    got_split = [ctypes.c_int() for _ in range(3)]
+    assert load_library().rs_lstm_split(h_in, h, *map(ctypes.byref, got_split)) == 0
+    assert (got_split[0].value, got_split[2].value) == (ranks, fills)
+    args = _lstm_inputs(r, h_in, h, seed=r * ranks + h)
+    got = lstm_cell_step(*args, compute_dtype="float32")
+    _check_lstm(got, args)
+    again = lstm_cell_step(*args, compute_dtype="float32")
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def test_lstm_cell_kernel_two_streams(dev):
+    """Two streams at once, each with its own inputs: every result bit-equal
+    to the same call made alone (no state is shared between calls), and
+    within 1e-5 of the twin."""
+    args = [_lstm_inputs(16, 640, 640, seed=s) for s in (1, 2)]
+    alone = [lstm_cell_step(*a, compute_dtype="float32") for a in args]
+    streams = [torch.cuda.Stream() for _ in range(2)]
+    torch.cuda.synchronize()
+    outs = [[], []]
+    for _ in range(20):
+        for i, st in enumerate(streams):
+            with torch.cuda.stream(st):
+                outs[i].append(lstm_cell_step(*args[i], compute_dtype="float32"))
+    torch.cuda.synchronize()
+    for a, want, got in zip(args, alone, outs):
+        _check_lstm(want, a)
+        for g in got:
+            assert all(torch.equal(x, y) for x, y in zip(want, g))
 
 
 def test_step_kernels_refuse_bf16_and_bad_inputs(dev):

@@ -19,7 +19,15 @@ then ``label device-ms/events-ms`` pairs:
   to the last one's end beside the summed device ms, and each device
   kernel's ms; beside them the bare fp32 cuBLAS products dec·Wp and z·Wo
   (TF32 off: a yardstick);
-- row 13 (``lstm_cell_step``) at nemo's predictor (R=16, H=640).
+- row 13 (``lstm_cell_step``) at nemo's predictor (R=16, H_in=H=640),
+  espnet's (R=4, H=256) and nemo ALSD beam 40 x 4 lanes (R=160, H=640),
+  each with its bound (bytes over 3.35 TB/s or fp32 FMAs over 67 TFLOP/s)
+  and beside ``torch.lstm_cell`` (the same function, weights as [4H, in]),
+  and beside ``torch.amax`` over the two weight matrices (one reduction
+  reading the same 13.1 MB once: a yardstick of the weights' read alone),
+  each once back-to-back (warm L2) and once cold: a 64 MB buffer written
+  before each call (device ms of the call's kernels alone; events ms of the
+  fill and the call, and of the fill alone).
 
 Device ms: torch.profiler, the mean of 50 calls (the span: their median);
 events ms: CUDA events over 200 back-to-back calls after a warm-up (the
@@ -131,11 +139,61 @@ def times(root):
         put("cuBLAS dec.Wp + z.Wo " + label,
             timed(lambda: (torch.matmul(args[5], args[0]), torch.matmul(z, args[2]))))
 
-    r, h = 16, 640
-    largs = (rand(h, 4 * h, scale=h ** -0.5), rand(h, 4 * h, scale=h ** -0.5),
-             rand(4 * h, scale=0.1), rand(r, h), rand(r, h, scale=0.5), rand(r, h))
-    put("row13 nemo R=16 H=640",
-        timed(lambda: ops.lstm_cell_step(*largs, compute_dtype="float32")))
+    flush = torch.empty(16 * 2 ** 20, device=dev)  # 64 MB, written between cold calls
+
+    def timed_cold(fn):
+        """(device ms of fn's kernels a call, events ms of fill + fn a call,
+        events ms of the fill alone) with the 64 MB buffer written before
+        each call, so that fn's inputs are no longer in the 50 MB L2."""
+        def pair():
+            flush.fill_(1.0)
+            fn()
+
+        pair()
+        torch.cuda.synchronize()
+        dev_ms = float("nan")
+        for _ in range(3):
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                for _ in range(50):
+                    pair()
+                torch.cuda.synchronize()
+            us = [e.time_range.end - e.time_range.start for e in prof.events()
+                  if e.device_type == DeviceType.CUDA and "FillFunctor" not in e.name]
+            if us:
+                dev_ms = sum(us) / 1e3 / 50
+                break
+        ev = []
+        for f in (pair, lambda: flush.fill_(1.0)):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(50):
+                f()
+            end.record()
+            torch.cuda.synchronize()
+            ev.append(start.elapsed_time(end) / 50)
+        return f"{dev_ms:.4f} / {ev[0]:.4f} (fill alone {ev[1]:.4f})"
+
+    for label, r, h in (("nemo R=16 H=640", 16, 640), ("espnet R=4 H=256", 4, 256),
+                        ("nemo beam 40 R=160 H=640", 160, 640)):
+        largs = (rand(h, 4 * h, scale=h ** -0.5), rand(h, 4 * h, scale=h ** -0.5),
+                 rand(4 * h, scale=0.1), rand(r, h), rand(r, h, scale=0.5), rand(r, h))
+        w_ih_t, w_hh_t = largs[0].t().contiguous(), largs[1].t().contiguous()
+        zero = torch.zeros_like(largs[2])
+        call = lambda: ops.lstm_cell_step(*largs, compute_dtype="float32")  # noqa: E731
+        lib = lambda: torch.lstm_cell(largs[3], (largs[4], largs[5]), w_ih_t, w_hh_t,  # noqa: E731
+                                      largs[2], zero)
+        moved = 4 * (2 * h * 4 * h + 4 * h + 3 * r * h + 2 * r * h)
+        flops = 2.0 * r * 2 * h * 4 * h + 10.0 * r * h
+        t_mem, t_ops = moved / 3.35e12, flops / 67e12
+        res["row13 bound " + label] = \
+            f"{max(t_mem, t_ops) * 1e3:.4f} ({'bytes' if t_mem > t_ops else 'operations'})"
+        put("row13 " + label, timed(call))
+        res["row13 cold " + label] = timed_cold(call)
+        put("torch.lstm_cell " + label, timed(lib))
+        res["torch.lstm_cell cold " + label] = timed_cold(lib)
+        weights = torch.cat([largs[0], largs[1]])
+        put("torch.amax over W_ih|W_hh " + label, timed(lambda: torch.amax(weights)))
+        res["torch.amax over W_ih|W_hh cold " + label] = timed_cold(lambda: torch.amax(weights))
     print("TIMES", root, " | ".join(f"{k} {v}" for k, v in res.items()), flush=True)
 
 
