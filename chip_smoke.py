@@ -102,7 +102,25 @@ Phases, each of which fails the run (nonzero exit, no result line):
    with the two kernels' plain twins: the tokens must be equal, or else the
    first differing step's two candidates must lie within 1e-4 in fp32 (a
    near-tie the two summation orders break differently);
-8. the kernels' JSON line (each kernel's time, its plain twin's, the bound
+8. converted paths: each flavor from an offline HF-hub snapshot of its
+   published layout at the full published width and depth, built by
+   tests/fixture_checkpoints.py (a .nemo archive at the xlarge width, an
+   espnet-zoo directory at espnet_encoder_config() with the RNN-T head and
+   GlobalMVN statistics, a sherpa k2 repo at ZipformerConfig.large() with
+   its ONNX decoder/joiner and icefall .pt; the weights random from the
+   file's seed): a plain load_model() on the card converts it with the
+   port's converter (convert/), caches the tree and serves it (nemo
+   transcribe_batch 4 x 30 s twice; k2 transcribe_batch 4 x 30 s twice
+   and transcribe 60 s; espnet the CTC blank scan of a 20 s window,
+   decode_batch of four 20 s windows and decode_single 45 s). Checked: the
+   serving
+   configuration at the published width, the tree's keys, shapes and dtypes
+   against init, leaves against the state dict's tensors by published name
+   bit for bit, every kernel of the flavor launched, the encoder against its
+   plain twins (relative L2 <= 5e-2), and a second load_model() with the
+   hub deleted reading the cached tree without running the converter. The
+   seconds of each step and the peak host RSS are logged;
+9. the kernels' JSON line (each kernel's time, its plain twin's, the bound
    of its work on this card, the launches on its path, and the time of one
    PyTorch call computing the same function where there is one), then the
    last line {"ok": true, "device": {"platform": "gpu", "kind": ...,
@@ -2049,6 +2067,497 @@ def k2_beam_path(name):
     return counts["joint_topm"]
 
 
+# --- phase 8: the converted paths --------------------------------------------
+
+# the fixture espnet joint's blank logit raised before the zoo is written, so
+# that Graves ends frames by ESPnet's test as a trained model does: without
+# it the fixture's random joint runs every frame to the pop cap (128 pops a
+# lane-frame on the CPU at a tiny width), with it ~21, beam 20's floor
+CONVERTED_BLANK_BIAS = 16.0
+
+
+class PeakRss:
+    """The peak host resident set of the process over a block, sampled
+    every 10 ms from /proc/self/statm by a thread that the block's end
+    stops, beside the resident set at its start."""
+
+    def __init__(self):
+        import os
+        import threading
+
+        self.page, self.stop = os.sysconf("SC_PAGE_SIZE"), threading.Event()
+        self.start = self.peak = self._rss()
+        self.thread = threading.Thread(target=self._sample, daemon=True)
+
+    def _rss(self):
+        with open("/proc/self/statm") as f:
+            return int(f.read().split()[1]) * self.page
+
+    def _sample(self):
+        while not self.stop.wait(0.01):
+            self.peak = max(self.peak, self._rss())
+
+    def __enter__(self):
+        self.thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self.stop.set()
+        self.thread.join()
+
+    def __str__(self):
+        return f"{self.peak / 1e9:.2f} GB ({self.start / 1e9:.2f} GB at the start)"
+
+
+@contextlib.contextmanager
+def swapped(module, attr, make):
+    """``module.attr`` is ``make(module.attr)`` within the block."""
+    fn = getattr(module, attr)
+    setattr(module, attr, make(fn))
+    try:
+        yield
+    finally:
+        setattr(module, attr, fn)
+
+
+def timing(seconds, key):
+    """A wrapper that adds the seconds of every call to ``seconds[key]``."""
+    def make(fn):
+        def wrapper(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                seconds[key] = seconds.get(key, 0.0) + time.perf_counter() - t0
+        return wrapper
+    return make
+
+
+def refusing(fn):
+    def raise_(*args, **kwargs):
+        raise AssertionError(f"{fn.__name__} ran although the converted tree is cached")
+    return raise_
+
+
+@contextlib.contextmanager
+def offline_caches(root):
+    """The HF hub cache and the converted-tree cache under ``root``, offline."""
+    import os
+
+    env = {"HF_HUB_CACHE": os.path.join(root, "hub"), "HF_HOME": os.path.join(root, "hf"),
+           "HF_HUB_OFFLINE": "1", "REAZONSPEECH_TPU_CACHE": os.path.join(root, "converted")}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        yield env["HF_HUB_CACHE"]
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def same_tree_layout(what, got, want):
+    """The same keys, and at each the same shape and dtype."""
+    def layout(tree, prefix=""):
+        if isinstance(tree, dict):
+            return {k2: v2 for k, v in tree.items() for k2, v2 in layout(v, f"{prefix}/{k}").items()}
+        if isinstance(tree, (list, tuple)):
+            return {k2: v2 for i, v in enumerate(tree)
+                    for k2, v2 in layout(v, f"{prefix}/{i}").items()}
+        return {prefix: (tuple(tree.shape), tree.dtype)}
+
+    g, w = layout(got), layout(want)
+    diff = sorted(k for k in set(g) | set(w) if g.get(k) != w.get(k))
+    check(not diff, f"{what}: the converted tree differs from init at {diff[:6]}")
+    log(f"{what}: the converted tree has init's {len(w)} leaves, shapes and dtypes")
+
+
+def same_leaves(what, pairs):
+    """Each converted leaf equals its published tensor under the transform
+    written beside it, bit for bit."""
+    import torch
+
+    for label, leaf, want in pairs:
+        got = leaf.detach().cpu()
+        want = torch.as_tensor(want)
+        check(got.shape == want.shape and got.dtype == want.dtype and torch.equal(got, want),
+              f"{what}: {label} differs from the published tensor")
+    log(f"{what}: {len(pairs)} leaves equal their published tensors bit for bit: "
+        + "; ".join(label for label, _, _ in pairs))
+
+
+def converted_encoder_check(what, model, encode):
+    """A 5 s and a 3 s input through the encoder with the kernels and with
+    their plain twins, on the converted weights (relative L2 <= 5e-2 on the
+    valid frames, as reference_check)."""
+    import torch
+
+    wav = np.stack([speech_like(5.0, seed=70), speech_like(5.0, seed=71)])
+    wav[1, 3 * SR:] = 0.0
+    lens = np.array([5 * SR, 3 * SR], np.int32)
+    with torch.inference_mode():
+        enc, el = encode(wav, lens)
+        with plain_twins():
+            ref, _ = encode(wav, lens)
+    check(bool(torch.isfinite(enc).all()), f"{what}: non-finite encoder output")
+    valid = (torch.arange(enc.shape[1], device=enc.device)[None, :] < el[:, None])[..., None]
+    rel = ((enc.float() - ref.float()) * valid).norm().item() / (ref.float() * valid).norm().item()
+    log(f"{what} encoder on the converted weights, kernels vs plain twins: relative L2 "
+        f"{rel:.3g} (tol 5e-2)")
+    check(rel <= 5e-2, f"{what} encoder relative error {rel}")
+
+
+def _host_encode(model, encode_feats):
+    """(wav, lens) host arrays -> frontend -> ``encode_feats`` on the card."""
+    import torch
+
+    from reazonspeech_tpu_torch.frontend.features import log_mel_spectrogram
+
+    def encode(wav, lens):
+        w = torch.from_numpy(np.ascontiguousarray(wav)).to(model.device)
+        lengths = torch.from_numpy(lens).to(model.device)
+        feats, fl = log_mel_spectrogram(w, lengths, model.fe_cfg)
+        return encode_feats(model.params["encoder"], feats, fl, model.enc_cfg)
+
+    return encode
+
+
+def load_converted(what, load, loader_module, converter, converter_module, npz):
+    """The first load_model() of a snapshot (it converts), then the second
+    with the hub deleted (it must read the cached tree and convert nothing).
+    Returns (model, seconds)."""
+    import os
+    import shutil
+
+    import torch
+
+    seconds = {}
+    t0 = time.perf_counter()
+    with swapped(loader_module, converter, timing(seconds, "conversion")), \
+            swapped(converter_module, "save_param_tree", timing(seconds, "tree save")):
+        model = load()
+    torch.cuda.synchronize()
+    seconds["first load_model"] = time.perf_counter() - t0
+    seconds["conversion"] -= seconds["tree save"]
+    check(os.path.exists(npz), f"{what}: no converted tree at {npz}")
+    mtime = os.path.getmtime(npz)
+    shutil.rmtree(os.environ["HF_HUB_CACHE"])
+    t0 = time.perf_counter()
+    with swapped(loader_module, converter, refusing):
+        again = load()
+    torch.cuda.synchronize()
+    seconds["load from the cache"] = time.perf_counter() - t0
+    check(os.path.getmtime(npz) == mtime, f"{what}: the cached tree was written again")
+    a, b = (m.params["joint"]["out"]["w"] for m in (model, again))
+    check(torch.equal(a, b), f"{what}: the second load's weights differ from the first's")
+    log(f"{what}: the second load_model() with the hub deleted read the cached tree "
+        f"({os.path.getsize(npz) / 1e9:.2f} GB) and ran no converter")
+    del again
+    return model, seconds
+
+
+def converted_nemo(root):
+    import torch
+
+    import fixture_checkpoints as fx
+
+    from reazonspeech_tpu_torch import ops
+    from reazonspeech_tpu_torch.convert import nemo_fastconformer
+    from reazonspeech_tpu_torch.core.hub import converted_path
+    from reazonspeech_tpu_torch.models.fastconformer import (
+        FastConformerConfig, fastconformer_encode,
+    )
+    from reazonspeech_tpu_torch.models.rnnt import RNNTConfig
+    from reazonspeech_tpu_torch.nemo import asr
+    from reazonspeech_tpu_torch.nemo.asr import model as nemo_model
+
+    enc_cfg = FastConformerConfig.xlarge()
+    rnnt_cfg = RNNTConfig(enc_dim=enc_cfg.d_model)
+    t0 = time.perf_counter()
+    with offline_caches(root) as hub:
+        sd = fx.synth_nemo_state_dict(enc_cfg, rnnt_cfg)
+        fx.write_hf_snapshot(hub, nemo_model.HF_REPO_ID, lambda snap: fx.write_nemo_archive(
+            f"{snap}/reazonspeech-nemo-v2.nemo", enc_cfg, rnnt_cfg, sd=sd))
+        seconds = {"snapshot write": time.perf_counter() - t0}
+        model, more = load_converted("nemo", asr.load_model, nemo_model,
+                                     "convert_nemo_checkpoint", nemo_fastconformer,
+                                     converted_path(nemo_model.HF_REPO_ID, "model") + ".npz")
+    seconds.update(more)
+    check(model.enc_cfg == nemo_model._cuda_serving_config(FastConformerConfig.xlarge()),
+          f"nemo: not the xlarge serving configuration: {model.enc_cfg}")
+    check(model.rnnt_cfg == rnnt_cfg, f"nemo: not the published decoder: {model.rnnt_cfg}")
+    check((model.decode_cfg.beam_size, model.decode_cfg.topk_impl) == (4, "pallas"),
+          f"nemo: not the archive's ALSD beam 4 on the top-m kernel: {model.decode_cfg}")
+    same_tree_layout("nemo", model.params,
+                     nemo_model.init_params(0, model.enc_cfg, model.rnnt_cfg, model.device))
+    p, h = model.params, rnnt_cfg.pred_hidden
+    enc, last = p["encoder"]["blocks"], enc_cfg.num_layers - 1
+    w_ih = sd["decoder.prediction.dec_rnn.lstm.weight_ih_l0"]
+    same_leaves("nemo", [
+        ("joint.enc.w = joint.enc.weightᵀ", p["joint"]["enc"]["w"], sd["joint.enc.weight"].T),
+        ("blocks.attn_q.w[0] = layers.0.self_attn.linear_q.weightᵀ", enc["attn_q"]["w"][0],
+         sd["encoder.layers.0.self_attn.linear_q.weight"].T),
+        (f"blocks.attn_q.w[{last}] = layers.{last}.self_attn.linear_q.weightᵀ",
+         enc["attn_q"]["w"][last], sd[f"encoder.layers.{last}.self_attn.linear_q.weight"].T),
+        ("lstm[0].w_ih[:, H:2H] = weight_ih_l0[H:2H]ᵀ (gate f)",
+         p["predictor"]["lstm"][0]["w_ih"][:, h:2 * h], w_ih[h:2 * h].T),
+        ("lstm[0].w_ih = weight_ih_l0ᵀ (gates i, f, g, o)", p["predictor"]["lstm"][0]["w_ih"],
+         w_ih.T),
+        ("blocks.conv_dw.w[5] = layers.5.conv.depthwise_conv.weight [C, 1, K] -> [K, 1, C]",
+         enc["conv_dw"]["w"][5],
+         sd["encoder.layers.5.conv.depthwise_conv.weight"].permute(2, 1, 0)),
+    ])
+
+    batch = [asr.audio_from_numpy(speech_like(30.0, seed=80 + i), SR) for i in range(4)]
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    first = asr.transcribe_batch(model, batch)
+    t1 = time.perf_counter()
+    res = asr.transcribe_batch(model, batch)
+    t2 = time.perf_counter()
+    counts = ops.launch_counts()
+    seconds.update({"first transcribe_batch": t1 - t0, "second transcribe_batch": t2 - t1})
+    log(f"nemo converted path: launch counts {counts}")
+    check(all(counts[k] > 0 for k in SERVING_KERNELS),
+          f"nemo converted path: a kernel was not launched: {counts}")
+    check_results(res, [30.0] * 4)
+    check([r.text for r in first] == [r.text for r in res], "nemo: two runs gave other texts")
+    converted_encoder_check("nemo", model, _host_encode(model, fastconformer_encode))
+    return seconds
+
+
+def converted_espnet(root):
+    import fixture_checkpoints as fx
+
+    from reazonspeech_tpu_torch import ops
+    from reazonspeech_tpu_torch.convert import espnet_conformer
+    from reazonspeech_tpu_torch.core.hub import converted_path
+    from reazonspeech_tpu_torch.decoding.transducer_graves import GravesBeamConfig
+    from reazonspeech_tpu_torch.espnet import asr
+    from reazonspeech_tpu_torch.espnet.asr import model as espnet_model
+    from reazonspeech_tpu_torch.espnet.asr.ctc import find_blank
+    from reazonspeech_tpu_torch.espnet.asr.transcribe import PADDING
+    from reazonspeech_tpu_torch.models.conformer import espnet_encoder_config
+    from reazonspeech_tpu_torch.models.rnnt import RNNTConfig
+
+    enc_cfg = espnet_encoder_config()
+    tokens = espnet_model.default_token_list()
+    rnnt_cfg = RNNTConfig(vocab_size=len(tokens), enc_dim=enc_cfg.d_model, pred_hidden=256,
+                          joint_hidden=256, joint_activation="tanh", predictor_kind="lstm",
+                          blank_position="first")
+    t0 = time.perf_counter()
+    with offline_caches(root) as hub:
+        sd = fx.synth_espnet_state_dict(enc_cfg, len(tokens), rnnt_cfg)
+        sd["joint_network.lin_out.bias"][0] += CONVERTED_BLANK_BIAS
+        snap = fx.write_hf_snapshot(hub, espnet_model.HF_REPO_ID,
+                                    lambda snap: fx.write_espnet_zoo(snap, enc_cfg, tokens,
+                                                                     rnnt_cfg, sd=sd))
+        run = f"{snap}/exp/asr_train_asr_conformer_raw_jp_char"
+        with np.load(f"{run}/feats_stats.npz") as stats:
+            stats = dict(stats)
+        seconds = {"snapshot write": time.perf_counter() - t0}
+        model, more = load_converted("espnet", asr.load_model, espnet_model,
+                                     "convert_espnet_checkpoint", espnet_conformer,
+                                     converted_path(espnet_model.HF_REPO_ID, "model") + ".npz")
+    seconds.update(more)
+    check(model.enc_cfg == espnet_model._cuda_serving_config(espnet_encoder_config()),
+          f"espnet: not the full-width serving configuration: {model.enc_cfg}")
+    check(model.rnnt_cfg == rnnt_cfg, f"espnet: not the zoo's decoder: {model.rnnt_cfg}")
+    check(model.decode_cfg == GravesBeamConfig(beam_size=20, topk_impl="pallas"),
+          "espnet: not Graves beam 20 on the top-m kernel")
+    check(model.token_list == tokens, "espnet: the token list is not config.yaml's")
+    p = dict(model.params)
+    norm = p.pop("normalize")
+    random = espnet_model.load_model_container(checkpoint="random", enc_cfg=model.enc_cfg,
+                                               rnnt_cfg=model.rnnt_cfg, token_list=tokens,
+                                               device=model.device)
+    same_tree_layout("espnet", p, random.params)
+    del random
+    # GlobalMVN from the zoo's collect_stats npz: mean = sum/count,
+    # std = sqrt(sum_square/count - mean²), in float64, then float32
+    count = float(stats["count"].reshape(-1)[0])
+    mean = stats["sum"].reshape(-1) / count
+    std = np.sqrt(np.maximum(stats["sum_square"].reshape(-1) / count - mean * mean, 1.0e-20))
+    enc, h = p["encoder"]["blocks"], rnnt_cfg.pred_hidden
+    w_ih = sd["decoder.decoder.0.weight_ih_l0"]
+    same_leaves("espnet", [
+        ("joint.enc.w = joint_network.lin_enc.weightᵀ", p["joint"]["enc"]["w"],
+         sd["joint_network.lin_enc.weight"].T),
+        ("joint.out.b = joint_network.lin_out.bias", p["joint"]["out"]["b"],
+         sd["joint_network.lin_out.bias"]),
+        ("blocks.attn_q.w[0] = encoders.0.self_attn.linear_q.weightᵀ", enc["attn_q"]["w"][0],
+         sd["encoder.encoders.0.self_attn.linear_q.weight"].T),
+        ("blocks.attn_q.w[11] = encoders.11.self_attn.linear_q.weightᵀ", enc["attn_q"]["w"][11],
+         sd["encoder.encoders.11.self_attn.linear_q.weight"].T),
+        ("blocks.ffn1_in.w[3] = encoders.3.feed_forward_macaron.w_1.weightᵀ",
+         enc["ffn1_in"]["w"][3], sd["encoder.encoders.3.feed_forward_macaron.w_1.weight"].T),
+        ("lstm[0].w_ih[:, 2H:3H] = decoder.0.weight_ih_l0[2H:3H]ᵀ (gate g)",
+         p["predictor"]["lstm"][0]["w_ih"][:, 2 * h:3 * h], w_ih[2 * h:3 * h].T),
+        ("blocks.conv_dw.w[7] = encoders.7.conv_module.depthwise_conv.weight [C, 1, K] -> "
+         "[K, 1, C]", enc["conv_dw"]["w"][7],
+         sd["encoder.encoders.7.conv_module.depthwise_conv.weight"].permute(2, 1, 0)),
+        ("normalize.mean = feats_stats sum/count", norm["mean"], mean.astype(np.float32)),
+        ("normalize.std = feats_stats sqrt(sum_square/count - mean²)", norm["std"],
+         std.astype(np.float32)),
+    ])
+
+    window = int(21.5 * SR)  # a 20 s window padded as transcribe pads it
+    buf = np.zeros((4, 22 * SR), np.float32)
+    for i in range(4):
+        buf[i, :window] = np.pad(speech_like(20.0, seed=91 + i), PADDING)
+    lens = np.full(4, window, np.int32)
+    # the CTC blank scan that transcribe runs on each 20 s window (T=499:
+    # the packed route), then Graves beam 20 at T=549 and T=1149, the
+    # phase's longest calls (~21 pops a lane-frame, ~1.5 ms a pop)
+    ops.reset_launch_counts()
+    with PopCounter(espnet_model) as pops:
+        t0 = time.perf_counter()
+        blank = find_blank(model, speech_like(20.0, seed=90))
+        t1 = time.perf_counter()
+        batch = model.decode_batch(buf, lens)
+        t2 = time.perf_counter()
+        tokens_1, frames_1 = model.decode_single(speech_like(45.0, seed=95))
+        t3 = time.perf_counter()
+    counts = ops.launch_counts()
+    seconds.update({"find_blank 20 s": t1 - t0, "decode_batch": t2 - t1,
+                    "decode_single 45 s": t3 - t2})
+    log(f"espnet converted path: launch counts {counts}")
+    check(all(counts[k] > 0 for k in ESPNET_KERNELS),
+          f"espnet converted path: a kernel was not launched: {counts}")
+    check(0 <= blank[0] <= blank[1] <= 20 * SR, f"espnet find_blank: {blank}")
+    check(batch[3].tolist() == [537] * 4, f"espnet decode_batch: encoder lengths {batch[3]}")
+    check(frames_1 == sorted(frames_1) and all(0 <= f < 1149 for f in frames_1),
+          "espnet decode_single: emission frames out of order or range")
+    stats = pops.summary()
+    log(f"espnet converted path: decode_batch tokens {batch[2].tolist()}, decode_single "
+        f"{len(tokens_1)} tokens, blank run {tuple(blank)}; Graves beam 20: "
+        f"{stats['pops_per_lane_frame']:.2f} pops per lane-frame, saturated lanes "
+        f"{stats['saturated_lanes']}")
+    converted_encoder_check("espnet", model, lambda wav, lens: _espnet_encode(model, wav, lens))
+    return seconds
+
+
+def converted_k2(root):
+    import fixture_checkpoints as fx
+
+    from reazonspeech_tpu_torch import ops
+    from reazonspeech_tpu_torch.convert import onnx_zipformer
+    from reazonspeech_tpu_torch.core.hub import converted_path
+    from reazonspeech_tpu_torch.k2 import asr
+    from reazonspeech_tpu_torch.k2.asr import huggingface as k2hf
+    from reazonspeech_tpu_torch.k2.asr import model as k2_model
+    from reazonspeech_tpu_torch.models import zipformer as zf
+    from reazonspeech_tpu_torch.models.rnnt import RNNTConfig
+
+    enc_cfg = zf.ZipformerConfig.large()
+    tokens = k2_model.default_k2_token_list()
+    rnnt_cfg = RNNTConfig(vocab_size=len(tokens), enc_dim=enc_cfg.out_dim, pred_hidden=512,
+                          joint_hidden=512, joint_activation="tanh", predictor_kind="stateless",
+                          context_size=2)
+    repo_id, epochs = k2hf.LANGUAGE_MODELS["ja"]
+    t0 = time.perf_counter()
+    with offline_caches(root) as hub:
+        sd = fx.synth_icefall_state_dict(enc_cfg, rnnt_cfg)
+        fx.write_hf_snapshot(hub, repo_id, lambda snap: fx.write_k2_repo(
+            snap, enc_cfg, rnnt_cfg, tokens, epochs, sd=sd))
+        seconds = {"snapshot write": time.perf_counter() - t0}
+        model, more = load_converted("k2", asr.load_model, k2hf, "convert_sherpa_snapshot",
+                                     onnx_zipformer, converted_path(repo_id, "fp32") + ".npz")
+    seconds.update(more)
+    check(model.enc_cfg == k2_model._cuda_serving_config(zf.ZipformerConfig.large()),
+          f"k2: not the large serving configuration: {model.enc_cfg}")
+    check(model.rnnt_cfg == rnnt_cfg, f"k2: not the graphs' decoder: {model.rnnt_cfg}")
+    check(model.token_list == tokens, "k2: the token list is not tokens.txt's")
+    random = k2_model.load_model_container(checkpoint="random", enc_cfg=model.enc_cfg,
+                                           rnnt_cfg=model.rnnt_cfg, token_list=tokens,
+                                           device=model.device)
+    same_tree_layout("k2", model.params, random.params)
+    del random
+    p = model.params
+    stacks = p["encoder"]["stacks"]
+    d = rnnt_cfg.pred_hidden
+    same_leaves("k2", [
+        ("joint.enc.w = joiner.encoder_proj.weightᵀ (ONNX)", p["joint"]["enc"]["w"],
+         sd["joiner.encoder_proj.weight"].T),
+        ("predictor.ctx_proj.w = decoder.conv.weight [D, D, 2] -> [2·D, D] (ONNX)",
+         p["predictor"]["ctx_proj"]["w"],
+         sd["decoder.conv.weight"].permute(2, 1, 0).reshape(2 * d, d)),
+        ("stacks[3].layers.attn_pos.w[4] = encoders.3.encoder.layers.4.self_attn_weights."
+         "linear_pos.weightᵀ", stacks[3]["layers"]["attn_pos"]["w"][4],
+         sd["encoder.encoders.3.encoder.layers.4.self_attn_weights.linear_pos.weight"].T),
+        ("stacks[0].layers.attn_qkp.w[1] = encoders.0.layers.1.self_attn_weights.in_proj."
+         "weightᵀ", stacks[0]["layers"]["attn_qkp"]["w"][1],
+         sd["encoder.encoders.0.layers.1.self_attn_weights.in_proj.weight"].T),
+        ("stacks[2].layers.cv1_dw.w[0] = encoders.2.encoder.layers.0.conv_module1."
+         "depthwise_conv.weight [C, 1, K] -> [K, 1, C]", stacks[2]["layers"]["cv1_dw"]["w"][0],
+         sd["encoder.encoders.2.encoder.layers.0.conv_module1.depthwise_conv.weight"]
+         .permute(2, 1, 0)),
+    ])
+
+    batch = [asr.audio_from_numpy(speech_like(30.0, seed=100 + i), SR) for i in range(4)]
+    long_form = asr.audio_from_numpy(speech_like(60.0, seed=105), SR)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    first = asr.transcribe_batch(model, batch)
+    t1 = time.perf_counter()
+    res = asr.transcribe_batch(model, batch)
+    t2 = time.perf_counter()
+    res_long = asr.transcribe(model, long_form)
+    t3 = time.perf_counter()
+    counts = ops.launch_counts()
+    seconds.update({"first transcribe_batch": t1 - t0, "second transcribe_batch": t2 - t1,
+                    "transcribe 60 s": t3 - t2})
+    log(f"k2 converted path: launch counts {counts}")
+    check(all(counts[k] > 0 for k in K2_KERNELS),
+          f"k2 converted path: a kernel was not launched: {counts}")
+    check_k2_results(res, [30.0] * 4)
+    check_k2_results([res_long], [60.0])
+    check([r.text for r in first] == [r.text for r in res], "k2: two runs gave other texts")
+    converted_encoder_check("k2", model, _host_encode(model, zf.zipformer_encode))
+    return seconds
+
+
+def converted_paths(name):
+    """Each flavor from a snapshot of its published layout at the full
+    published width and depth (tests/fixture_checkpoints.py's writers, the
+    weights random from its seed): a plain load_model() on the card converts
+    it with the port's converter, caches the tree and serves it; the checks
+    of the phase (configuration, tree layout, leaves by published name,
+    kernel launches, encoder against its plain twins, the second load from
+    the cache) fail the run. Each flavor's files go to a directory under
+    build/ that is removed afterwards."""
+    import gc
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+
+    import yaml  # the .nemo and espnet-zoo configs are YAML, read with PyYAML
+
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests"))
+    log(f"converted paths: every flavor through its snapshot (PyYAML {yaml.__version__})")
+    base = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(base, exist_ok=True)
+    for flavor, run in (("nemo", converted_nemo), ("k2", converted_k2),
+                        ("espnet", converted_espnet)):
+        root = tempfile.mkdtemp(prefix=f"converted_{flavor}_", dir=base)
+        t0 = time.perf_counter()
+        try:
+            with PeakRss() as rss:
+                seconds = run(root)
+        finally:
+            shutil.rmtree(root, ignore_errors=True)
+            gc.collect()
+            torch.cuda.empty_cache()
+        log(f"{flavor} converted path on {name}: "
+            + ", ".join(f"{k} {v:.3f} s" for k, v in seconds.items())
+            + f"; peak host RSS {rss}; the flavor took "
+            f"{time.perf_counter() - t0:.1f} s")
+
+
 def main():
     import torch
 
@@ -2081,6 +2590,7 @@ def main():
     counts.update(k2_path(f"{smi}"))
     k2_beam_path(f"{smi}")
     counts.update(espnet_path(f"{smi}"))
+    converted_paths(f"{smi}")
     for row in rows:
         row["launches"] = counts[row["name"]]
     print(json.dumps({"kernels": rows}), flush=True)

@@ -17,6 +17,8 @@ Ported so far: the nemo-v2, k2 and espnet serving paths —
     decoding/rnnt_greedy.py     label-looping greedy decode
     decoding/ctc.py             CTC blank scan and Viterbi alignment (espnet)
     nemo/asr/, k2/asr/, espnet/asr/  load_model / transcribe / transcribe_batch / cli
+    convert/                    the checkpoint converters (.nemo, espnet zoo,
+                                icefall + sherpa-onnx), the int8 writer, the store
     core/                       copies of the JAX package's jax-free core
 
 with hand-written Hopper kernels under ``csrc/`` (rel-pos attention, the

@@ -1,1 +1,2 @@
-"""Param-tree storage and the weight bridge from the JAX package."""
+"""Checkpoint converters (published containers -> the native param tree),
+param-tree storage, int8 quantization and the weight bridge from numpy."""

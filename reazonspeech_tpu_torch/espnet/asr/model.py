@@ -15,6 +15,7 @@ encoder frames) the attention takes the reference's [B, H, T, dh] route
 (``fastconformer.attention_route``). On the CPU it runs the plain formulas.
 """
 
+import glob
 import os
 import warnings
 from dataclasses import dataclass, replace
@@ -23,6 +24,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ...convert.espnet_conformer import convert_espnet_checkpoint
 from ...convert.from_jax import params_from_numpy
 from ...convert.store import load_param_tree
 from ...core.hub import CheckpointNotFoundError, resolve_converted
@@ -191,25 +193,19 @@ def _cuda_serving_config(enc_cfg: FastConformerConfig) -> FastConformerConfig:
                    compute_dtype="bfloat16", residual_dtype="float32")
 
 
-_CONVERTER = "reazonspeech_tpu.convert.espnet_conformer.convert_espnet_checkpoint"
-
-
-def _no_converter(snapshot_dir, out_base):
-    raise CheckpointNotFoundError(
-        f"found a snapshot at {snapshot_dir} but no converted tree at {out_base}.npz; "
-        f"convert it once with {_CONVERTER} (convert/espnet_conformer.py; the tree format "
-        "is shared by both packages)")
-
-
-def _resolve_checkpoint():
-    try:
-        return resolve_converted(HF_REPO_ID, "model", _no_converter, require=("*.pth",))
-    except CheckpointNotFoundError as err:
-        if _CONVERTER in str(err):
-            raise
-        raise CheckpointNotFoundError(
-            f"{err}\nA snapshot is read through a converted tree: convert it with "
-            f"{_CONVERTER} (convert/espnet_conformer.py).") from None
+def _convert_snapshot(snapshot_dir, out_base):
+    """Convert the espnet-zoo .pth (+ its config.yaml) inside an HF snapshot."""
+    pths = sorted(
+        glob.glob(os.path.join(snapshot_dir, "**", "*.pth"), recursive=True),
+        # prefer the averaged validation checkpoint the zoo publishes
+        key=lambda p: ("valid" not in p, "ave" not in p, p),
+    )
+    if not pths:
+        raise CheckpointNotFoundError(f"HF snapshot {snapshot_dir} contains no .pth checkpoint")
+    cfg_candidates = glob.glob(os.path.join(os.path.dirname(pths[0]), "config.yaml")) \
+        or glob.glob(os.path.join(snapshot_dir, "**", "config.yaml"), recursive=True)
+    convert_espnet_checkpoint(pths[0], out_base,
+                              config_yaml=cfg_candidates[0] if cfg_candidates else None)
 
 
 def load_model_container(
@@ -230,9 +226,12 @@ def load_model_container(
     "greedy". "maes" is not ported yet and raises NotImplementedError.
 
     Weights: ``checkpoint=`` path > $REAZONSPEECH_TPU_ESPNET_CHECKPOINT > the
-    converted-tree cache shared with the JAX package. With nothing found this
-    raises CheckpointNotFoundError naming the converter; random weights are
-    opt-in with ``checkpoint="random"``. The port never downloads. On CUDA,
+    converted-tree cache shared with the JAX package > a locally cached HF
+    snapshot of reazonspeech-espnet-v2, whose ``.pth`` and ``config.yaml``
+    are converted (``convert/espnet_conformer.py``) and cached on the first
+    load. With nothing found this raises CheckpointNotFoundError; random
+    weights are opt-in with ``checkpoint="random"``. The port never
+    downloads. On CUDA,
     an encoder config not passed explicitly is the serving configuration
     (see module notes).
     """
@@ -250,7 +249,8 @@ def load_model_container(
     meta, params = {}, None
     if checkpoint != "random":
         if checkpoint is None:
-            checkpoint = _resolve_checkpoint()
+            checkpoint = resolve_converted(HF_REPO_ID, "model", _convert_snapshot,
+                                           require=("*.pth",))
         tree, meta = load_param_tree(checkpoint)
         params = params_from_numpy(tree, device)
         if meta.get("token_list"):

@@ -6,16 +6,20 @@ device/precision/language signature, language→model table, file-name
 tables and validation errors, and the same resolution order: explicit
 ``checkpoint=`` > $REAZONSPEECH_TPU_K2_CHECKPOINT >
 $REAZONSPEECH_TPU_K2_CHECKPOINT_DIR/<language>/<precision> > the
-converted-tree cache shared with the JAX package. ``checkpoint="random"``
-opts into a randomly initialized model.
+converted-tree cache shared with the JAX package > a locally cached HF
+snapshot. ``checkpoint="random"`` opts into a randomly initialized model.
 
-The port never downloads and converts no ONNX graph: a cached snapshot
-without a converted tree raises CheckpointNotFoundError, which names the
-JAX package's converter (the tree format is shared by both packages).
+The port never downloads. A locally cached snapshot without a converted
+tree is converted on the first load (``convert/onnx_zipformer.py``): the
+published ONNX decoder/joiner graphs (fp32 or int8 per ``precision``)
+convert directly, the encoder from the icefall .pt next to them (the traced
+encoder ONNX is constant-folded).
 """
 
+import glob
 import os
 
+from ...convert.onnx_zipformer import convert_sherpa_snapshot
 from ...core.hub import CheckpointNotFoundError, resolve_converted
 from .model import DEFAULT_CHECKPOINT_ENV, K2TorchModel, load_model_container
 
@@ -59,11 +63,37 @@ def hf_repo_files(precision, epochs):
     return files[precision]
 
 
-def _no_converter(snapshot_dir, out_base):
-    raise CheckpointNotFoundError(
-        f"found a snapshot at {snapshot_dir} but no converted tree at {out_base}.npz; "
-        "convert it once with reazonspeech_tpu.convert.onnx_zipformer."
-        "convert_sherpa_snapshot (the tree format is shared by both packages)")
+def _make_converter(precision, epochs):
+    files = hf_repo_files(precision, epochs)
+
+    def convert(snapshot_dir, out_base):
+        def find(name):
+            p = os.path.join(snapshot_dir, name)
+            if os.path.exists(p):
+                return p
+            hits = glob.glob(os.path.join(snapshot_dir, "**", name), recursive=True)
+            return hits[0] if hits else None
+
+        enc, dec, joi = (find(files[k]) for k in ("encoder", "decoder", "joiner"))
+        if not (enc and dec and joi):
+            raise CheckpointNotFoundError(
+                f"snapshot {snapshot_dir} is missing the {precision} ONNX "
+                f"files {sorted(files.values())}")
+        tokens = find(files["tokens"])
+        if tokens is None:
+            raise CheckpointNotFoundError(
+                f"snapshot {snapshot_dir} has no {files['tokens']} — the "
+                "published repos always ship it; without it decoded ids "
+                "cannot be mapped to symbols")
+        pts = sorted(
+            glob.glob(os.path.join(snapshot_dir, "**", "*.pt"), recursive=True),
+            # prefer the averaged/pretrained export over raw epoch files
+            key=lambda p: ("pretrained" not in p, "avg" not in p, p),
+        )
+        convert_sherpa_snapshot(enc, dec, joi, out_base, tokens_txt=tokens,
+                                icefall_pt=pts[0] if pts else None)
+
+    return convert
 
 
 def load_model(device=None, precision="fp32", language="ja", checkpoint=None,
@@ -97,7 +127,7 @@ def load_model(device=None, precision="fp32", language="ja", checkpoint=None,
                     f"${CHECKPOINT_DIR_ENV}={basedir} is set but {cand}.npz does not exist")
             checkpoint = cand
     if checkpoint is None:
-        repo_id, _ = LANGUAGE_MODELS[language]
-        checkpoint = resolve_converted(repo_id, precision, _no_converter)
+        repo_id, epochs = LANGUAGE_MODELS[language]
+        checkpoint = resolve_converted(repo_id, precision, _make_converter(precision, epochs))
     return load_model_container(checkpoint=checkpoint, decoding=decoding or "greedy",
                                 device=device)

@@ -13,6 +13,7 @@ matmuls with fp32 accumulation, an fp32 residual stream, and the fused
 top-m kernel in the ALSD loop. On the CPU it runs the plain formulas.
 """
 
+import glob
 import os
 from dataclasses import dataclass, replace
 from typing import Optional
@@ -21,6 +22,7 @@ import numpy as np
 import torch
 
 from ...convert.from_jax import params_from_numpy
+from ...convert.nemo_fastconformer import convert_nemo_checkpoint
 from ...convert.store import load_param_tree
 from ...core.hub import CheckpointNotFoundError, resolve_converted
 from ...core.tokenizer import CharTokenizer, SentencePieceTokenizer
@@ -123,11 +125,12 @@ def _cuda_serving_config(enc_cfg: FastConformerConfig) -> FastConformerConfig:
                    compute_dtype="bfloat16", residual_dtype="float32")
 
 
-def _no_converter(snapshot_dir, out_base):
-    raise CheckpointNotFoundError(
-        f"found a snapshot at {snapshot_dir} but no converted tree at {out_base}.npz; "
-        "convert it once with reazonspeech_tpu.convert.nemo_fastconformer."
-        "convert_nemo_checkpoint (the tree format is shared by both packages)")
+def _convert_snapshot(snapshot_dir, out_base):
+    """Convert the .nemo archive inside an HF snapshot to a native tree."""
+    cands = sorted(glob.glob(os.path.join(snapshot_dir, "**", "*.nemo"), recursive=True))
+    if not cands:
+        raise CheckpointNotFoundError(f"HF snapshot {snapshot_dir} contains no .nemo archive")
+    convert_nemo_checkpoint(cands[0], out_base)
 
 
 def load_model(device=None, *, checkpoint: Optional[str] = None,
@@ -139,9 +142,11 @@ def load_model(device=None, *, checkpoint: Optional[str] = None,
     raises without a GPU; pass ``device="cpu"`` for the CPU).
 
     Weights: ``checkpoint=`` path > $REAZONSPEECH_TPU_NEMO_CHECKPOINT > the
-    converted-tree cache shared with the JAX package. With nothing found this
-    raises CheckpointNotFoundError; random weights are opt-in with
-    ``checkpoint="random"``. The port never downloads.
+    converted-tree cache shared with the JAX package > a locally cached HF
+    snapshot of reazonspeech-nemo-v2, whose ``.nemo`` archive is converted
+    (``convert/nemo_fastconformer.py``) and cached on the first load. With
+    nothing found this raises CheckpointNotFoundError; random weights are
+    opt-in with ``checkpoint="random"``. The port never downloads.
 
     ``decoding``: "alsd"/"beam" (default, NeMo's ALSD beam search) or
     "greedy". On CUDA, configs not passed explicitly default to the kernel
@@ -155,7 +160,7 @@ def load_model(device=None, *, checkpoint: Optional[str] = None,
     meta, params = {}, None
     if checkpoint != "random":
         if checkpoint is None:
-            checkpoint = resolve_converted(HF_REPO_ID, "model", _no_converter,
+            checkpoint = resolve_converted(HF_REPO_ID, "model", _convert_snapshot,
                                            require=("*.nemo",))
         tree, meta = load_param_tree(checkpoint)
         params = params_from_numpy(tree, device)

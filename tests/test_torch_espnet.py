@@ -422,17 +422,25 @@ def empty_caches(tmp_path, monkeypatch):
 
 
 def test_load_model_errors(empty_caches):
-    """No checkpoint anywhere, or a snapshot without a converted tree:
-    CheckpointNotFoundError naming the converter, never random weights;
-    maes raises NotImplementedError, an unknown decoding ValueError."""
-    with pytest.raises(CheckpointNotFoundError, match="espnet_conformer"):
+    """No checkpoint anywhere: CheckpointNotFoundError offering
+    checkpoint="random", never random weights; a snapshot whose .pth is
+    empty reaches the converter, whose error propagates as the JAX loader's
+    does on the same snapshot (no tree cached); maes raises
+    NotImplementedError, an unknown decoding ValueError."""
+    with pytest.raises(CheckpointNotFoundError, match="random"):
         load_model("cpu")
     snap = (empty_caches / "hub" / "models--reazon-research--reazonspeech-espnet-v2"
             / "snapshots" / "abc" / "exp")
     snap.mkdir(parents=True)
     (snap / "valid.acc.ave.pth").write_bytes(b"")
-    with pytest.raises(CheckpointNotFoundError, match="no converted tree.*espnet_conformer"):
-        load_model("cpu")
+    errors = []
+    for load in (lambda: load_model("cpu"), jmodel.load_model_container):
+        with pytest.raises(Exception) as err:
+            load()
+        errors.append(err.value)
+    assert type(errors[0]) is type(errors[1]) and str(errors[0]) == str(errors[1])
+    assert not isinstance(errors[0], CheckpointNotFoundError)
+    assert not list((empty_caches / "cache").rglob("*.npz"))
     with pytest.raises(NotImplementedError, match="maes"):
         load_model("cpu", checkpoint="random", decoding="maes")
     with pytest.raises(ValueError, match="Unknown decoding"):

@@ -1,5 +1,6 @@
 """The PyTorch port stands alone: after importing every module of
-``reazonspeech_tpu_torch``, neither JAX nor any module of the JAX package
+``reazonspeech_tpu_torch``, and after running its checkpoint converters on
+published-layout fixtures, neither JAX nor any module of the JAX package
 (``reazonspeech_tpu`` itself or ``reazonspeech_tpu.*``, ``core`` included:
 the port keeps its own copy) is in ``sys.modules``."""
 
@@ -31,6 +32,44 @@ ESPNET_MODULES = [
 # the beam decoders' step kernels
 DECODE_STEP_MODULES = ["reazonspeech_tpu_torch." + m
                        for m in ("ops.lstm_step", "ops.beam_topk", "decoding.rnnt_beam")]
+# the checkpoint converters
+CONVERT_MODULES = ["reazonspeech_tpu_torch.convert." + m
+                   for m in ("torch_utils", "quantize", "onnx_reader", "nemo_fastconformer",
+                             "espnet_conformer", "icefall_zipformer", "onnx_zipformer")]
+
+# each converter run on a published-layout fixture (its lazy imports
+# included: torch, yaml, the port's models), then the modules loaded
+_CONVERT_ALL = """
+import os, sys, tempfile
+sys.path.insert(0, "tests")
+import fixture_checkpoints as fx
+from reazonspeech_tpu_torch.convert import (
+    espnet_conformer, nemo_fastconformer, onnx_zipformer, quantize)
+from reazonspeech_tpu_torch.k2.asr.huggingface import hf_repo_files
+from reazonspeech_tpu_torch.models import conformer, fastconformer, rnnt, zipformer
+d = tempfile.mkdtemp()
+enc = fastconformer.FastConformerConfig.tiny()
+fx.write_nemo_archive(d + "/m.nemo", enc, rnnt.RNNTConfig.tiny(enc_dim=enc.d_model))
+nemo_fastconformer.convert_nemo_checkpoint(d + "/m.nemo", d + "/nemo")
+tokens = ["<blank>", "a", "b", "<sos/eos>"]
+enc = conformer.espnet_encoder_config(num_layers=1, d_model=32, num_heads=4,
+                                      subsampling_channels=32)
+fx.write_espnet_zoo(d + "/zoo", enc, tokens)
+run = d + "/zoo/exp/asr_train_asr_conformer_raw_jp_char/"
+espnet_conformer.convert_espnet_checkpoint(run + "valid.acc.ave_10best.pth", d + "/espnet",
+                                           config_yaml=run + "config.yaml")
+enc = zipformer.ZipformerConfig.tiny()
+fx.write_k2_repo(d + "/k2", enc, rnnt.RNNTConfig(vocab_size=4, enc_dim=enc.out_dim,
+                 pred_hidden=16, joint_hidden=24, predictor_kind="stateless"), tokens,
+                 int8=True)
+f = {k: d + "/k2/" + v for k, v in hf_repo_files("int8", 99).items()}
+params, _, _ = onnx_zipformer.convert_sherpa_snapshot(
+    f["encoder"], f["decoder"], f["joiner"], d + "/k2tree", tokens_txt=f["tokens"],
+    icefall_pt=d + "/k2/exp/pretrained.pt", enc_cfg=enc)
+quantize.dequantize_tree(quantize.quantize_tree(params))
+print(",".join(sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib"))
+                      or m == "reazonspeech_tpu" or m.startswith("reazonspeech_tpu."))))
+"""
 
 
 def test_port_imports_no_jax():
@@ -42,5 +81,15 @@ def test_port_imports_no_jax():
     n_modules, leaked = first.split()[0], first.strip().partition(" ")[2]
     assert int(n_modules) >= 20
     assert leaked == "", f"imported by the port: {leaked}"
-    missing = sorted(set(ESPNET_MODULES + DECODE_STEP_MODULES) - set(names.split()))
+    missing = sorted(set(ESPNET_MODULES + DECODE_STEP_MODULES + CONVERT_MODULES)
+                     - set(names.split()))
     assert not missing, f"not imported: {missing}"
+
+
+def test_converters_run_without_jax():
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run([sys.executable, "-c", _CONVERT_ALL], env=env, cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    leaked = out.stdout.strip().splitlines()[-1] if out.stdout.strip() else ""
+    assert leaked == "", f"loaded by the converters: {leaked}"

@@ -17,6 +17,7 @@ from reazonspeech_tpu.convert.quantize import quantize_tree
 from reazonspeech_tpu.convert.store import save_param_tree
 from reazonspeech_tpu.decoding import rnnt_greedy as jgreedy
 from reazonspeech_tpu.frontend import features as jfeat
+from reazonspeech_tpu.k2.asr import huggingface as jhf
 from reazonspeech_tpu.k2.asr import model as jk2model
 from reazonspeech_tpu.k2.asr.transcribe import transcribe as jax_transcribe
 from reazonspeech_tpu.k2.asr.transcribe import transcribe_batch as jax_transcribe_batch
@@ -218,12 +219,17 @@ def test_load_model_requires_a_checkpoint(empty_caches, monkeypatch):
 
 
 def test_snapshot_without_tree_names_the_converter(empty_caches):
+    """A snapshot without the ONNX files reaches the converter, which raises
+    what the JAX loader raises on the same snapshot: the missing files."""
     snap = (empty_caches / "hub" / "models--reazon-research--reazonspeech-k2-v2" / "snapshots"
             / "abc")
     snap.mkdir(parents=True)
     (snap / "tokens.txt").write_text("<blk> 0\n")
-    with pytest.raises(CheckpointNotFoundError, match="onnx_zipformer"):
+    with pytest.raises(CheckpointNotFoundError, match="missing the fp32 ONNX files") as got:
         load_model("cpu")
+    with pytest.raises(FileNotFoundError) as want:
+        jhf.load_model()
+    assert str(got.value) == str(want.value)
 
 
 def test_load_model_resolves_the_checkpoint_dir(tree_path, monkeypatch, tmp_path):
