@@ -102,7 +102,26 @@ Phases, each of which fails the run (nonzero exit, no result line):
    with the two kernels' plain twins: the tokens must be equal, or else the
    first differing step's two candidates must lie within 1e-4 in fp32 (a
    near-tie the two summation orders break differently);
-8. converted paths: each flavor from an offline HF-hub snapshot of its
+8. serving: each flavor at its full published width and depth in its GPU
+   serving configuration (random weights from its seed) behind the HTTP
+   front (make_app on a ThreadingHTTPServer at 127.0.0.1, port 0) over the
+   lane-recycling ContinuousBatcher: nemo ALSD beam 4 (8 lanes, 32 steps a
+   segment, 20 s windows, 4 encodes a tick) under 8 concurrent POST
+   /transcribe of 2-20 s and one of 45 s (windowed by submit_long), then the
+   45 s one on /transcribe_stream, /healthz and /metrics; k2 greedy (8
+   lanes) under 5 requests of 3-20 s; espnet Graves beam 20 (4 lanes) with
+   the joint's blank raised, under 3 requests of 2-5 s. Checked: no answer
+   but 200, the drain ends with no lane busy, every kernel of the flavor's
+   encode tick and segments launched, the stream's lines equal the 45 s
+   answer, and each answer equals a MicroBatcher's of the pool's encode
+   shape on the same requests (the 45 s one as its windows stitched by
+   _window_keep), or else the request alone through a fresh pool gives the
+   same answer and its recorded search first differs from the
+   MicroBatcher's at an fp32 near-tie under 1e-4. Logged with the card's
+   name and power limit: requests, executor wall s and audio-s/s beside the
+   MicroBatcher's, segments, host ms per segment, lane occupancy, p50/p95
+   latency;
+9. converted paths: each flavor from an offline HF-hub snapshot of its
    published layout at the full published width and depth, built by
    tests/fixture_checkpoints.py (a .nemo archive at the xlarge width, an
    espnet-zoo directory at espnet_encoder_config() with the RNN-T head and
@@ -120,7 +139,7 @@ Phases, each of which fails the run (nonzero exit, no result line):
    plain twins (relative L2 <= 5e-2), and a second load_model() with the
    hub deleted reading the cached tree without running the converter. The
    seconds of each step and the peak host RSS are logged;
-9. the kernels' JSON line (each kernel's time, its plain twin's, the bound
+10. the kernels' JSON line (each kernel's time, its plain twin's, the bound
    of its work on this card, the launches on its path, and the time of one
    PyTorch call computing the same function where there is one), then the
    last line {"ok": true, "device": {"platform": "gpu", "kind": ...,
@@ -621,6 +640,9 @@ def bucket_kernel_checks(rand, dev):
     rows.append(_compare("relpos_attention_fused", ops.relpos_attention_fused,
                          ops.relpos_attention_fused_plain, (q, kk, v, pos, bu, bv, lengths, h),
                          0.03, iters=20, flops=flops_relpos))
+    q = heads_first(q)
+    sdpa_yardstick(rows[-1], "T=401, separate q/k/v", q + bu.to(bf16)[:, None],
+                   q + bv.to(bf16)[:, None], heads_first(kk), heads_first(v), pos, lengths)
     return rows
 
 
@@ -711,10 +733,12 @@ def espnet_kernel_checks(rand, dev):
             rows.append(row)
             qu, qv, kk, v, pos, lengths = args
             sdpa_yardstick(row, label, qu, qv, kk, v, pos, lengths)
+    args = bhtd(1, 1149, [1149])
     rows.append(_compare("relpos_attention_blockwise", relpos_attention_blockwise,
-                         relpos_attention_blockwise_plain, bhtd(1, 1149, [1149]), SHARED_ATOL,
+                         relpos_attention_blockwise_plain, args, SHARED_ATOL,
                          iters=10, label="B=1, T=1149", flops=flops_relpos_bhtd,
                          plain_kwargs=dict(block=64)))
+    sdpa_yardstick(rows[-1], "B=1, T=1149", *args)
 
     t = 549
     lengths = torch.tensor([t], dtype=torch.int32, device=dev)
@@ -2558,6 +2582,281 @@ def converted_paths(name):
             f"{time.perf_counter() - t0:.1f} s")
 
 
+# --- the serving stack: the continuous executor behind the HTTP front --------
+
+# the encoder kernels of the packed attention route, which the nemo and
+# espnet encode ticks take at their 20 s windows (T=250 and 499)
+PACKED_ROUTE_KERNELS = ("ln_dense", "ln_dense_add", "relpos_attention_fused_packed", "add_ln")
+
+
+class HttpFront:
+    """make_app's handler on a ThreadingHTTPServer at 127.0.0.1, port 0,
+    served from a thread; :meth:`call` is one request on a fresh
+    connection: (status, content type, body bytes)."""
+
+    def __init__(self, model, spf, **pool_kw):
+        import threading
+        from http.server import ThreadingHTTPServer
+
+        from reazonspeech_tpu_torch.serving.http import make_app
+
+        self.handler, self.pool = make_app(model, spf, executor="continuous", **pool_kw)
+        self.server = ThreadingHTTPServer(("127.0.0.1", 0), self.handler)
+        self.port = self.server.server_address[1]
+        self.thread = threading.Thread(target=self.server.serve_forever, daemon=True)
+        self.thread.start()
+
+    def call(self, method, path, body=None):
+        import http.client
+
+        conn = http.client.HTTPConnection("127.0.0.1", self.port, timeout=600)
+        conn.request(method, path, body=body,
+                     headers={"Content-Type": "application/octet-stream"} if body else {})
+        resp = conn.getresponse()
+        data = resp.read()
+        conn.close()
+        return resp.status, resp.getheader("Content-Type"), data
+
+    def close(self):
+        """Stop accepting, then drain the pool."""
+        self.server.shutdown()
+        self.server.server_close()
+        self.pool.close()
+
+
+def concurrently(fns):
+    """Call every fn at once, each on its own thread; their results in order."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(len(fns)) as ex:
+        return list(ex.map(lambda f: f(), fns))
+
+
+def _lane0(trace):
+    """A recorded search's first lane (row 0 of every recorded tensor)."""
+    return [tuple(x[:1] for x in step) for step in trace]
+
+
+def serving_near_tie(what, kind, model, pool_kw, wav, static):
+    """Where the executor's answer differs from the same-shape
+    MicroBatcher's (``static``, its (tokens, frames)): the request alone
+    through a fresh pool of the same configuration, and the MicroBatcher's
+    decode of it, both recorded; where the two differ, they must first
+    differ at an fp32 near-tie under 1e-4, as same_decode allows. Greedy has
+    no such allowance (its pool and batch run the same shapes). Returns the
+    lone run's (tokens, frames), which the caller holds against the
+    executor's answer among other requests (no lane leaks into another)."""
+    import torch
+
+    from reazonspeech_tpu_torch.serving import ContinuousBatcher
+
+    check(kind in ("alsd", "graves"), f"{what}: differs from the same-shape MicroBatcher")
+    rec_pool, rec_micro = [], []
+    pool = ContinuousBatcher(model, **pool_kw)
+    try:
+        with recorded(kind, rec_pool):
+            lone = pool.submit(wav).result(timeout=600)
+    finally:
+        pool.close()
+    if tuple(lone) == tuple(static):
+        return lone
+    buf = np.zeros((pool.max_encode_batch, pool.max_samples), np.float32)
+    buf[0, :len(wav)] = wav
+    lens = np.zeros(pool.max_encode_batch, np.int32)
+    lens[0] = len(wav)
+    with recorded(kind, rec_micro):
+        model.decode_batch(buf, lens)
+    torch.cuda.synchronize()
+    div = first_divergence(kind, _lane0(rec_pool), _lane0(rec_micro))
+    check(div is not None, f"{what}: the answers differ but no recorded step does")
+    step, _, slot, gap = div
+    log(f"{what}: differs from the MicroBatcher's; first differing "
+        f"{'step' if kind == 'alsd' else 'frame'} {step}, slot {slot}: fp32 score gap "
+        f"{gap:.3g} between the two candidates (tol 1e-4)")
+    check(gap < 1e-4, f"{what}: the answers differ beyond an fp32 near-tie (gap {gap})")
+    return lone
+
+
+def serve_flavor(what, name, model, spf, kind, kernels, pool_kw, shorts, long_w=None):
+    """One flavor through the HTTP front over its ContinuousBatcher: the
+    short requests and the long one (windowed by submit_long) posted at
+    once, then the long one again on /transcribe_stream, /healthz and
+    /metrics; the drain. Then the same requests through a MicroBatcher of
+    the pool's encode shape (the long one as its windows, stitched by
+    _window_keep), the same-shape A/B: equal answers, or an fp32 near-tie
+    (:func:`serving_near_tie`). Fails on any 500, an unfinished drain, a
+    busy lane after close(), or a kernel of ``kernels`` not launched in the
+    executor's run."""
+    import json
+
+    import torch
+
+    from reazonspeech_tpu_torch import ops
+    from reazonspeech_tpu_torch.serving import MicroBatcher
+    from reazonspeech_tpu_torch.serving.http import _result_json
+
+    front = HttpFront(model, spf, **pool_kw)
+    pool = front.pool
+    requests = list(shorts) + ([long_w] if long_w is not None else [])
+    audio_s = sum(len(w) for w in requests) / SR
+    try:
+        pool.warmup(2.0)  # the executor thread's handles and pools
+        segments0, host0 = pool.segments, pool.segment_host_s
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        answers = concurrently([lambda w=w: front.call("POST", "/transcribe", w.tobytes())
+                                for w in requests])
+        wall = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        stream = front.call("POST", "/transcribe_stream", long_w.tobytes()) \
+            if long_w is not None else None
+        health = front.call("GET", "/healthz")
+        metrics = front.call("GET", "/metrics")
+    finally:
+        front.close()
+    check(not pool._thread.is_alive(), f"{what}: the executor did not drain")
+    check(pool.busy_lanes() == 0, f"{what}: a lane is busy after close()")
+    bad = [(i, st, body[:200]) for i, (st, _, body) in enumerate(answers) if st != 200]
+    check(not bad, f"{what}: requests failed: {bad}")
+    check(health[0] == 200 and metrics[0] == 200, f"{what}: /healthz or /metrics failed")
+    stats = json.loads(health[2])
+    check(stats["requests_done"] >= len(requests) and stats["executor"] == "continuous",
+          f"{what}: /healthz {stats}")
+    check("reazonspeech_lane_occupancy" in metrics[2].decode(), f"{what}: /metrics lacks stats")
+    log(f"{what}: launch counts in the executor's run {counts}")
+    check(all(counts[k] > 0 for k in kernels),
+          f"{what}: a kernel of the serving path was not launched: {counts}")
+    got = [json.loads(body) for _, _, body in answers]
+
+    # the same requests through the pool's encode shape, statically batched
+    micro = MicroBatcher(model, fixed_shape=(pool.max_encode_batch, pool.max_samples))
+    windows = []
+    if long_w is not None:
+        starts, chunk, overlap = pool._window_plan(len(long_w), None)
+        windows = [long_w[st:st + chunk] for st in starts]
+    try:
+        t0 = time.perf_counter()
+        static = [f.result(timeout=600) for f in [micro.submit(w) for w in
+                                                   list(shorts) + windows]]
+        static_wall = time.perf_counter() - t0
+    finally:
+        micro.close()
+    torch.cuda.synchronize()
+    near = 0
+    for i, w in enumerate(shorts):
+        if got[i] != _result_json(model, *static[i], spf):
+            lone = serving_near_tie(f"{what} request {i}", kind, model, pool_kw, w, static[i])
+            check(_result_json(model, *lone, spf) == got[i],
+                  f"{what} request {i}: alone in the pool it decodes otherwise")
+            near += 1
+    if long_w is not None:
+        keep = dict(starts=starts, chunk=chunk, overlap=overlap, w_len=len(long_w))
+        parts = static[len(shorts):]
+        if got[-1] != _result_json(model, *_stitch(pool, parts, keep), spf):
+            lone = [serving_near_tie(f"{what} long request, window {j}", kind, model, pool_kw,
+                                     win, part) for j, (win, part) in enumerate(zip(windows, parts))]
+            check(_result_json(model, *_stitch(pool, lone, keep), spf) == got[-1],
+                  f"{what}: the long request differs from its windows stitched")
+            near += 1
+        lines = [json.loads(x) for x in stream[2].decode().splitlines()]
+        check(stream[0] == 200 and len(lines) == len(starts),
+              f"{what}: /transcribe_stream gave {stream[0]}, {len(lines)} lines")
+        check(sum((x["subwords"] for x in lines), []) == got[-1]["subwords"]
+              and "".join(x["text"] for x in lines) == got[-1]["text"],
+              f"{what}: the stream's lines differ from submit_long's answer")
+    segs = pool.segments - segments0
+    host_ms = (pool.segment_host_s - host0) * 1e3 / max(segs, 1)
+    log(f"{what} on {name}: {len(requests)} requests ({audio_s:.1f} audio-s; "
+        f"{len(shorts)} short, {len(windows)} windows of the long one); executor "
+        f"{wall:.3f} s wall, {audio_s / wall:.2f} audio-s/s; fixed-shape MicroBatcher "
+        f"{static_wall:.3f} s wall, {audio_s / static_wall:.2f} audio-s/s on the same requests; "
+        f"{segs} segments, host {host_ms:.2f} ms per segment; lane occupancy "
+        f"{stats['lane_occupancy']}; latency p50 {stats['latency_s']['p50']} s, p95 "
+        f"{stats['latency_s']['p95']} s; answers equal to the MicroBatcher's: "
+        f"{len(requests) - near} of {len(requests)} (the rest fp32 near-ties)")
+
+
+def _stitch(pool, parts, keep):
+    """Window answers merged as submit_long merges them."""
+    tokens, frames = [], []
+    for i, (st, (toks, frs)) in enumerate(zip(keep["starts"], parts)):
+        t, f = pool._window_keep(toks, frs, i=i, start=st, **keep)
+        tokens += t
+        frames += f
+    return tokens, frames
+
+
+def serving_phase(name):
+    """The serving stack at each flavor's full published width and depth in
+    its GPU serving configuration, random weights from its seed: nemo ALSD
+    beam 4 (8 lanes, 32 steps a segment, 20 s windows, 4 encodes a tick)
+    under 8 requests of 2-20 s and one of 45 s; k2 greedy (8 lanes, 8
+    encodes a tick) under 5 requests of 3-20 s; espnet Graves beam 20 (4
+    lanes, 4 encodes a tick: the MicroBatcher's shapes) with the joint's
+    blank raised as in the espnet phase, under 3 requests of 2-5 s."""
+    import gc
+    import types
+
+    import torch
+
+    from reazonspeech_tpu_torch.espnet.asr import load_model as espnet_load
+    from reazonspeech_tpu_torch.k2.asr import load_model as k2_load
+    from reazonspeech_tpu_torch.models.fastconformer import attention_route
+    from reazonspeech_tpu_torch.models.zipformer import ZipformerConfig
+    from reazonspeech_tpu_torch.nemo.asr import load_model as nemo_load
+    from reazonspeech_tpu_torch.serving import ContinuousBatcher
+
+    t_phase = time.perf_counter()
+    conv = {"batch_norm": "fused_conv_module_ln", "layer_norm": "fused_conv_module_ln_layer"}
+
+    def encoder_kernels(model, pool_kw):
+        t_buf = ContinuousBatcher.host_frames(types.SimpleNamespace(model=model),
+                                              int(pool_kw["max_seconds"] * SR))
+        route = attention_route(model.enc_cfg, t_buf)
+        check(route == "packed", f"serving: attention route {route} at T={t_buf}")
+        return PACKED_ROUTE_KERNELS + (conv[model.enc_cfg.conv_norm], "topm_logsoftmax")
+
+    model = nemo_load(device="cuda", checkpoint="random")
+    check(model.enc_cfg.d_model == 1024 and model.enc_cfg.num_layers == 24
+          and model.decode_cfg.topk_impl == "pallas" and model.decode_cfg.beam_size == 4,
+          "serving: nemo is not the xlarge ALSD beam 4 serving configuration")
+    kw = dict(n_lanes=8, frames_per_segment=32, max_seconds=20.0, max_encode_batch=4)
+    shorts = [speech_like(sec, seed=300 + i) for i, sec in enumerate((2, 4, 7, 10, 13, 16, 19, 20))]
+    serve_flavor("serving nemo ALSD", name, model, 0.08, "alsd", encoder_kernels(model, kw), kw,
+                 shorts, long_w=speech_like(45.0, seed=310))
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    model = k2_load(device="cuda", checkpoint="random")
+    cfg, large = model.enc_cfg, ZipformerConfig.large()
+    check((cfg.num_layers, cfg.encoder_dim, cfg.attn_impl) ==
+          (large.num_layers, large.encoder_dim, "pallas"),
+          "serving: k2 is not ZipformerConfig.large() on the shared-attention kernels")
+    kw = dict(n_lanes=8, frames_per_segment=32, max_seconds=20.0, max_encode_batch=8)
+    shorts = [speech_like(sec, seed=320 + i) for i, sec in enumerate((3, 6, 11, 15, 20))]
+    serve_flavor("serving k2 greedy", name, model, 0.04, "greedy", ("shared_rel_attention",),
+                 kw, shorts)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    model = espnet_load(device="cuda", checkpoint="random")
+    check(model.enc_cfg.d_model == 512 and model.enc_cfg.num_layers == 12
+          and model.decode_cfg.beam_size == 20 and model.decode_cfg.topk_impl == "pallas",
+          "serving: espnet is not the full-width Graves beam 20 serving configuration")
+    model.params["joint"]["out"]["b"][0] += ESPNET_BLANK_BIAS
+    kw = dict(n_lanes=4, frames_per_segment=32, max_seconds=20.0, max_encode_batch=4)
+    shorts = [speech_like(sec, seed=330 + i) for i, sec in enumerate((2, 3.5, 5))]
+    serve_flavor("serving espnet Graves", name, model, 0.04, "graves",
+                 encoder_kernels(model, kw), kw, shorts)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"serving phase: {time.perf_counter() - t_phase:.1f} s")
+
+
+
 def main():
     import torch
 
@@ -2590,6 +2889,7 @@ def main():
     counts.update(k2_path(f"{smi}"))
     k2_beam_path(f"{smi}")
     counts.update(espnet_path(f"{smi}"))
+    serving_phase(f"{smi}")
     converted_paths(f"{smi}")
     for row in rows:
         row["launches"] = counts[row["name"]]

@@ -35,6 +35,17 @@ The per-step joint tail runs, as in the reference:
 launch their kernels on CUDA tensors and run their plain twins on CPU ones.
 The predictor state is an LSTM ``(h, c)`` pair or, for a stateless (k2)
 predictor, its token context.
+
+``alsd_state_init`` / ``alsd_segment`` / ``alsd_finalize`` expose the same
+search as a resumable per-lane state machine (the reference's segmented
+API, behind ``serving/continuous.py``): a fixed pool of lanes, each with
+its own alignment-step clock, runs exactly ``n_steps`` bodies per call with
+no host sync; lanes flagged in ``reset_mask`` restart from the fresh state.
+The body has no cross-lane op, so each lane's result equals a dedicated
+:func:`rnnt_beam_decode` under the same ``max_tokens``. ``state.step``
+advances as the reference's does (every step while any lane of the pool is
+active), so the host clock ``min(step + n_steps, alsd_step_bound(len))``
+holds.
 """
 
 from dataclasses import dataclass
@@ -42,6 +53,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..device import param_device
 from ..models.rnnt import (
     RNNTConfig, _embed_tokens, joint_precompute_enc, joint_step_from_enc_proj, predictor_step,
     predictor_zero_state,
@@ -49,7 +61,8 @@ from ..models.rnnt import (
 from ..ops.beam_topk import joint_topm, topm_logsoftmax, topm_logsoftmax_plain
 from ..ops.lstm_step import lstm_cell_step
 
-__all__ = ["BeamDecodeConfig", "rnnt_beam_decode", "alsd_step_bound"]
+__all__ = ["BeamDecodeConfig", "rnnt_beam_decode", "ALSDBeamState", "alsd_state_init",
+           "alsd_segment", "alsd_finalize", "alsd_step_bound"]
 
 CHECK_EVERY = 32  # alignment steps between host-side termination checks
 _DEAD = -1.0e30  # score of an empty/killed beam slot
@@ -379,3 +392,65 @@ def rnnt_beam_decode(pred_params, joint_params, enc, enc_lengths, rnnt_cfg: RNNT
         if not bool(_el_active(state, enc_lengths, u_max_el).any()):
             break
     return _select_best(state, cfg)
+
+
+# --- resumable per-lane segments (continuous batching) -----------------------
+
+
+def _apply_reset(state: ALSDBeamState, reset, fresh: ALSDBeamState) -> ALSDBeamState:
+    """Lanes flagged in ``reset`` [B] take the fresh state (a new request
+    joins); the others keep theirs."""
+    def pick(new, old):
+        return torch.where(reset.reshape((-1,) + (1,) * (new.dim() - 1)), new, old)
+
+    return ALSDBeamState(*(_map_state(pick, new, old) for new, old in zip(fresh, state)))
+
+
+def alsd_state_init(pred_params, b: int, rnnt_cfg: RNNTConfig,
+                    cfg: BeamDecodeConfig) -> ALSDBeamState:
+    """Fresh lane-pool state on the predictor's device (``cfg.max_tokens``
+    must be set: a segment cannot default the emission buffer to T)."""
+    _check_supported(cfg)
+    if cfg.max_tokens <= 0:
+        raise ValueError("alsd_state_init: cfg.max_tokens must be set for segmented decode "
+                         "(the emission buffer cannot default to T)")
+    return _init_state(pred_params, b, rnnt_cfg, cfg, cfg.max_tokens, param_device(pred_params))
+
+
+def alsd_segment(pred_params, joint_params, enc_ring, lane_len, reset_mask,
+                 state: ALSDBeamState, rnnt_cfg: RNNTConfig, cfg: BeamDecodeConfig,
+                 n_steps: int):
+    """Advance every lane by ``n_steps`` alignment steps (lanes outside
+    their budget are frozen; no host sync).
+
+    Where the whole pool goes inactive inside the segment, the reference
+    leaves its loop and ``state.step`` stops there; here every lane's step
+    runs on to ``n_steps``. Nothing else differs: an inactive lane stays
+    inactive as its step grows, a reset puts the step back to 0, and the
+    executor's lane clock is kept on the host, not read from ``step``.
+
+    Args:
+      enc_ring: [B, T_buf, J] per-lane joint encoder projections (each
+        lane's utterance at rows 0..len-1)
+      lane_len: [B] int32 valid encoder frames per lane (0 = idle)
+      reset_mask: [B] bool, lanes re-initialised before stepping
+
+    Returns ``(state, done)``; ``done`` [B] bool is True once a lane's
+    search is over (budget spent, or no live hypothesis left).
+    """
+    lane_len = lane_len.to(torch.int32)
+    b = state.scores.shape[0]
+    fresh = _init_state(pred_params, b, rnnt_cfg, cfg, state.tokens.shape[-1], enc_ring.device)
+    state = _apply_reset(state, reset_mask, fresh)
+    u_max_el = torch.floor(cfg.alsd_max_target_len * lane_len.to(torch.float32)).to(torch.int32)
+    body = _make_body(pred_params, joint_params, enc_ring, lane_len, u_max_el, rnnt_cfg, cfg)
+    for _ in range(n_steps):
+        state = body(state)
+    return state, ~_el_active(state, lane_len, u_max_el)
+
+
+def alsd_finalize(state: ALSDBeamState, lane_len, rnnt_cfg: RNNTConfig, cfg: BeamDecodeConfig):
+    """(tokens [B, U], frames [B, U], counts [B], scores [B]) of each lane's
+    best hypothesis; idle lanes (``lane_len`` 0) count 0."""
+    tokens, frames, counts, scores = _select_best(state, cfg)
+    return tokens, frames, torch.where(lane_len <= 0, 0, counts), scores

@@ -13,8 +13,11 @@ does the port:
 - the pending and kept sets live in fixed-capacity tensors; lanes whose
   frame is done are masked (their writes land in scratch or repeat what is
   there), so a pop issued after a lane's frame ended changes nothing of it;
-- survivors are compacted into node slots 0..KC-1 once per frame for the
-  whole batch (the per-frame barrier);
+- each lane has its own frame clock ``fidx``: at a frame barrier every
+  lane still short of its length pops at its own frame (its encoder row
+  gathered there) until the frame is done for all of them, then the
+  survivors of those lanes are compacted into node slots 0..KC-1 (idle and
+  finished lanes keep theirs);
 - the bounds ESPnet does not have keep the shapes static:
   ``max_pops_per_frame`` (default 6·beam+8; a frame that reaches it keeps
   its best ``beam`` kept hypotheses and ``saturated`` reports it),
@@ -23,8 +26,8 @@ does the port:
 Output selection matches ESPnet ``sort_nbest``: the best kept hypothesis by
 ``score / (len + 1)`` when ``score_norm``, raw score otherwise.
 
-Host syncs: the frame loop runs ``max(lengths)`` frames (one read of the
-lengths a call). Every frame needs at least ``beam`` pops (the termination
+Host syncs: a one-shot decode runs ``max(lengths)`` barriers (one read of
+the lengths a call). Every frame needs at least ``beam`` pops (the termination
 test counts kept hypotheses, one a pop), so those are issued without a
 look; after each further pop the frame's done flag is copied to pinned host
 memory asynchronously and read once its copy has landed. The host waits on
@@ -44,19 +47,30 @@ The per-pop joint tail and the predictor step take ALSD's branches
 reference). The ops launch their kernels on CUDA tensors and run their plain
 twins on CPU ones. ``unroll`` is accepted
 and changes nothing (the reference's unrolling is exact, and the eager loop
-has nothing to unroll). ``multipop`` other than 1, and the segmented API,
-are not ported (ROADMAP).
+has nothing to unroll). ``multipop`` other than 1 is not ported (ROADMAP).
+
+``graves_state_init`` / ``graves_beam_segment`` / ``graves_finalize`` are
+the reference's segmented API (behind ``serving/continuous.py``): the state
+carried between segments is the compacted survivor set of each lane
+(:class:`GravesBeamState`), a segment runs up to ``n_frames`` barriers, and
+lanes flagged in ``reset_mask`` restart from the fresh state without
+touching their neighbours. Pops are lane-local, so each lane's result
+equals a dedicated :func:`graves_beam_decode` under the same
+``max_tokens``; the one-shot decode is itself fresh state, one segment of
+``max(lengths)`` frames, then the selection.
 """
 
 import collections
 from dataclasses import dataclass
+from typing import NamedTuple
 
 import torch
 
 from ..models.rnnt import RNNTConfig, joint_precompute_enc, predictor_step
 from .rnnt_beam import joint_tail, lstm_kernel_step
 
-__all__ = ["GravesBeamConfig", "graves_beam_decode", "graves_beam_decode_stats"]
+__all__ = ["GravesBeamConfig", "GravesBeamState", "graves_beam_decode", "graves_beam_decode_stats",
+           "graves_state_init", "graves_beam_segment", "graves_finalize"]
 
 _DEAD = -1.0e30
 _ALIVE = -1.0e25
@@ -245,50 +259,98 @@ def _make_pred_step(pred_params, rnnt_cfg: RNNTConfig, cfg: GravesBeamConfig):
     return pred_step
 
 
-def _decode(pred_params, joint_params, enc, enc_lengths, rnnt_cfg, cfg):
-    _check_supported(rnnt_cfg, cfg)
-    b, t, _ = enc.shape
-    dev = enc.device
-    lane_len = enc_lengths.to(device=dev, dtype=torch.int32)
-    dims = _dims(rnnt_cfg, cfg, t)
+class GravesBeamState(NamedTuple):
+    """Cross-segment survivor state, one row per lane: the kept hypotheses
+    compacted into node slots 0..KC-1 at the lane's last frame boundary."""
+
+    fidx: torch.Tensor  # [B] int32 next encoder frame (frames consumed)
+    saturated: torch.Tensor  # [B] bool
+    cs: torch.Tensor  # [B, KC] fp32 survivor scores (_DEAD = empty slot)
+    st: torch.Tensor  # [B, KC, U] int32 tokens
+    sf: torch.Tensor  # [B, KC, U] int32 emission frames
+    sc: torch.Tensor  # [B, KC] int32 token counts
+    slast: torch.Tensor  # [B, KC] int32 last token (blank at the start)
+    sph: torch.Tensor  # [B, KC, L, H] fp32 pre-step LSTM h
+    spc: torch.Tensor  # [B, KC, L, H] fp32 pre-step LSTM c
+    pmax: torch.Tensor  # [B] int32 most pops in one frame so far
+    ptot: torch.Tensor  # [B] int32 pops over all frames
+
+
+# arena name of each survivor field, in GravesBeamState order
+_SURVIVORS = (("st", "tokens"), ("sf", "frames"), ("sc", "cnt"), ("slast", "last"),
+              ("sph", "pre_h"), ("spc", "pre_c"))
+
+
+def _fresh_state(b, rnnt_cfg: RNNTConfig, cfg: GravesBeamConfig, u_buf, device):
+    kc = _dims(rnnt_cfg, cfg, u_buf)[3]
+    layers, hid = rnnt_cfg.pred_rnn_layers, rnnt_cfg.pred_hidden
+    i32 = dict(dtype=torch.int32, device=device)
+    f32 = dict(dtype=torch.float32, device=device)
+    cs = torch.full((b, kc), _DEAD, **f32)
+    cs[:, 0] = 0.0
+    return GravesBeamState(
+        fidx=torch.zeros((b,), **i32), saturated=torch.zeros((b,), dtype=torch.bool, device=device),
+        cs=cs, st=torch.zeros((b, kc, u_buf), **i32), sf=torch.zeros((b, kc, u_buf), **i32),
+        sc=torch.zeros((b, kc), **i32), slast=torch.full((b, kc), rnnt_cfg.blank_id, **i32),
+        sph=torch.zeros((b, kc, layers, hid), **f32), spc=torch.zeros((b, kc, layers, hid), **f32),
+        pmax=torch.zeros((b,), **i32), ptot=torch.zeros((b,), **i32))
+
+
+def _apply_reset(state: GravesBeamState, reset, rnnt_cfg: RNNTConfig, cfg: GravesBeamConfig):
+    """Lanes flagged in ``reset`` [B] take the fresh state (a new request
+    joins); the others keep theirs."""
+    fresh = _fresh_state(state.cs.shape[0], rnnt_cfg, cfg, state.st.shape[-1], state.cs.device)
+    return GravesBeamState(*(
+        torch.where(reset.reshape((-1,) + (1,) * (old.dim() - 1)), new, old)
+        for new, old in zip(fresh, state)))
+
+
+def _run_frames(pred_params, joint_params, enc_proj, lane_len, state: GravesBeamState,
+                rnnt_cfg, cfg, n_frames, host):
+    """Advance every lane by up to ``n_frames`` frames of its own utterance,
+    one frame barrier each: every lane still short of its ``lane_len`` pops
+    at its own frame ``fidx`` (its encoder row gathered there) until the
+    frame is done for all of them, then its survivors are compacted into
+    node slots 0..KC-1; idle and finished lanes are masked and keep their
+    survivors. ``host`` counts the barriers run, the pops issued and the
+    host's waits on a done flag."""
+    b, t_buf, _ = enc_proj.shape
+    dev = enc_proj.device
+    dims = _dims(rnnt_cfg, cfg, state.st.shape[-1])
     k, beam_k, _, kc, u_buf, n_nodes, _ = dims
     layers, hid = rnnt_cfg.pred_rnn_layers, rnnt_cfg.pred_hidden
-    enc_proj = joint_precompute_enc(joint_params, enc, rnnt_cfg)  # [B, T, J]
     pred_step = _make_pred_step(pred_params, rnnt_cfg, cfg)
     joint_step = joint_tail(joint_params, rnnt_cfg, cfg, beam_k)
 
     i32 = dict(dtype=torch.int32, device=dev)
-    state = dict(dtype=torch.float32, device=dev)
+    f32 = dict(dtype=torch.float32, device=dev)
     arenas = {
         "tokens": torch.zeros((b, n_nodes, u_buf), **i32),
         "frames": torch.zeros((b, n_nodes, u_buf), **i32),
         "cnt": torch.zeros((b, n_nodes), **i32),
         "last": torch.full((b, n_nodes), rnnt_cfg.blank_id, **i32),
-        "pre_h": torch.zeros((b, n_nodes, layers, hid), **state),
-        "pre_c": torch.zeros((b, n_nodes, layers, hid), **state),
-        "post_h": torch.zeros((b, n_nodes, layers, hid), **state),
-        "post_c": torch.zeros((b, n_nodes, layers, hid), **state),
+        "pre_h": torch.zeros((b, n_nodes, layers, hid), **f32),
+        "pre_c": torch.zeros((b, n_nodes, layers, hid), **f32),
+        "post_h": torch.zeros((b, n_nodes, layers, hid), **f32),
+        "post_c": torch.zeros((b, n_nodes, layers, hid), **f32),
     }
-    survivors = ("tokens", "frames", "cnt", "last", "pre_h", "pre_c")
-    cs = torch.full((b, kc), _DEAD, **state)
-    cs[:, 0] = 0.0
-    saturated = torch.zeros((b,), dtype=torch.bool, device=dev)
-    pmax = torch.zeros((b,), **i32)
-    ptot = torch.zeros((b,), **i32)
-    bi = torch.arange(b, device=dev)[:, None]
+    for field, name in _SURVIVORS:
+        arenas[name][:, :kc] = getattr(state, field)
+    fidx, cs, saturated = state.fidx, state.cs, state.saturated
+    pmax, ptot = state.pmax, state.ptot
+    bi = torch.arange(b, device=dev)
     slot = torch.arange(kc, device=dev)[None, :]
-    n_frames = min(t, int(lane_len.max())) if b else 0  # the call's one read of the lengths
-    host = {"frames": n_frames, "pops_issued": 0, "waits": 0}
     waits = [0]
 
-    for f in range(n_frames):
-        in_frame = f < lane_len  # [B]
-        frame = _Frame(arenas, cs, in_frame, enc_proj[:, f].contiguous(), f, pred_step,
-                       joint_step, dims)
+    for _ in range(n_frames):
+        in_frame = fidx < lane_len  # [B]
+        enc_row = enc_proj[bi, torch.clamp(fidx, max=t_buf - 1)]  # [B, J], each lane's frame
+        frame = _Frame(arenas, cs, in_frame, enc_row, fidx[:, None], pred_step, joint_step, dims)
         host["pops_issued"] += frame.run(waits)
-        saturated |= frame.saturated
+        host["frames"] += 1
+        saturated = saturated | frame.saturated
 
-        # compact the survivors into node slots 0..kc-1 (once per frame)
+        # compact the survivors of the lanes in frame into node slots 0..kc-1
         above = frame.ks > frame.ps.amax(dim=1)[:, None]
         thr_ok = above.sum(dim=1) >= k  # termination, not the pop cap
         masked = torch.where(thr_ok[:, None], torch.where(above, frame.ks, _DEAD), frame.ks)
@@ -298,28 +360,45 @@ def _decode(pred_params, joint_params, enc, enc_lengths, rnnt_cfg, cfg):
         valid = (vals > _ALIVE) & (thr_ok[:, None] | (slot < k))
         src = frame.knode.gather(1, idx)  # [B, KC] node slots, all >= kc
         keep = in_frame[:, None]
-        for name in survivors:
+        for _, name in _SURVIVORS:
             x = arenas[name]
-            rows = x[bi, src]
+            rows = x[bi[:, None], src]
             sel = keep.reshape(keep.shape + (1,) * (rows.dim() - 2))
             x[:, :kc] = torch.where(sel, rows, x[:, :kc])
         cs = torch.where(keep, torch.where(valid, vals, _DEAD), cs)
         pmax = torch.maximum(pmax, frame.pop_i)
         ptot = ptot + frame.pop_i
-    host["waits"] = waits[0]
+        fidx = fidx + in_frame.to(torch.int32)
+    host["waits"] += waits[0]
+    return GravesBeamState(fidx, saturated, cs,
+                           *(arenas[name][:, :kc].clone() for _, name in _SURVIVORS),
+                           pmax, ptot)
 
-    # ESPnet sort_nbest over the survivors
-    counts_kc = arenas["cnt"][:, :kc]
-    key = cs
+
+def _select_best(state: GravesBeamState, lane_len, cfg: GravesBeamConfig):
+    """ESPnet ``sort_nbest`` over the survivors: (tokens, frames, counts,
+    scores, saturated); lanes of length 0 count 0."""
+    key = state.cs
     if cfg.score_norm:
-        key = torch.where(cs > _ALIVE, cs / (counts_kc.to(torch.float32) + 1.0), _DEAD)
+        key = torch.where(state.cs > _ALIVE, state.cs / (state.sc.to(torch.float32) + 1.0), _DEAD)
     best = key.argmax(dim=1)
-    rows = torch.arange(b, device=dev)
-    tokens = arenas["tokens"][rows, best]
-    frames = arenas["frames"][rows, best]
-    counts = torch.where(lane_len <= 0, 0, counts_kc[rows, best])
-    scores = cs[rows, best]
-    return (tokens, frames, counts, scores, saturated), (pmax, ptot, host)
+    rows = torch.arange(best.shape[0], device=best.device)
+    counts = torch.where(lane_len <= 0, 0, state.sc[rows, best])
+    return (state.st[rows, best], state.sf[rows, best], counts, state.cs[rows, best],
+            state.saturated)
+
+
+def _decode(pred_params, joint_params, enc, enc_lengths, rnnt_cfg, cfg):
+    _check_supported(rnnt_cfg, cfg)
+    b, t, _ = enc.shape
+    lane_len = enc_lengths.to(device=enc.device, dtype=torch.int32)
+    enc_proj = joint_precompute_enc(joint_params, enc, rnnt_cfg)  # [B, T, J]
+    state = _fresh_state(b, rnnt_cfg, cfg, cfg.max_tokens or t, enc.device)
+    n_frames = min(t, int(lane_len.max())) if b else 0  # the call's one read of the lengths
+    host = {"frames": 0, "pops_issued": 0, "waits": 0}
+    state = _run_frames(pred_params, joint_params, enc_proj, lane_len, state, rnnt_cfg, cfg,
+                        n_frames, host)
+    return _select_best(state, lane_len, cfg), (state.pmax, state.ptot, host)
 
 
 def graves_beam_decode(pred_params, joint_params, enc, enc_lengths, rnnt_cfg: RNNTConfig,
@@ -344,3 +423,51 @@ def graves_beam_decode_stats(pred_params, joint_params, enc, enc_lengths, rnnt_c
     out, (pmax, ptot, host) = _decode(pred_params, joint_params, enc, enc_lengths, rnnt_cfg,
                                       cfg)
     return out + (pmax, ptot, host)
+
+
+# --- resumable per-lane segments (continuous batching) -----------------------
+
+
+def graves_state_init(b, rnnt_cfg: RNNTConfig, cfg: GravesBeamConfig,
+                      device) -> GravesBeamState:
+    """Fresh survivor state for ``b`` lanes on ``device``, that of the ring
+    the segments read (``cfg.max_tokens`` must be set: a segment cannot
+    default the emission buffer to T)."""
+    _check_supported(rnnt_cfg, cfg)
+    if cfg.max_tokens <= 0:
+        raise ValueError("graves_state_init: cfg.max_tokens must be set for segmented decode "
+                         "(the emission buffer cannot default to T)")
+    return _fresh_state(b, rnnt_cfg, cfg, cfg.max_tokens, torch.device(device))
+
+
+def graves_beam_segment(pred_params, joint_params, enc_ring, lane_len, reset_mask,
+                        state: GravesBeamState, rnnt_cfg: RNNTConfig, cfg: GravesBeamConfig,
+                        n_frames: int, frames_left=None) -> GravesBeamState:
+    """Advance every lane by up to ``n_frames`` frames of its own utterance.
+
+    Args:
+      enc_ring: [B, T_buf, J] per-lane joint encoder projections (each
+        lane's utterance at rows 0..len-1)
+      lane_len: [B] int32 valid frames per lane (0 = idle)
+      reset_mask: [B] bool, lanes re-initialised before stepping
+      frames_left: the most frames any lane has left, where the caller
+        mirrors the lanes' clocks on the host; the segment then runs
+        ``min(n_frames, frames_left)`` barriers (the rest would change
+        nothing), else ``n_frames``
+
+    Returns the updated state; a lane is finished once ``fidx >= lane_len``.
+    """
+    _check_supported(rnnt_cfg, cfg)
+    lane_len = lane_len.to(torch.int32)
+    state = _apply_reset(state, reset_mask, rnnt_cfg, cfg)
+    if frames_left is not None:
+        n_frames = min(n_frames, int(frames_left))
+    return _run_frames(pred_params, joint_params, enc_ring, lane_len, state, rnnt_cfg, cfg,
+                       n_frames, {"frames": 0, "pops_issued": 0, "waits": 0})
+
+
+def graves_finalize(state: GravesBeamState, lane_len, rnnt_cfg: RNNTConfig,
+                    cfg: GravesBeamConfig):
+    """(tokens [B, U], frames [B, U], counts [B], scores [B], saturated [B])
+    of each lane's best survivor."""
+    return _select_best(state, lane_len, cfg)

@@ -3,7 +3,7 @@ the CPU, and the fp32 matmul policy they set on it."""
 
 import torch
 
-__all__ = ["resolve_device", "set_fp32_matmul_policy"]
+__all__ = ["param_device", "resolve_device", "set_fp32_matmul_policy"]
 
 
 def resolve_device(device):
@@ -23,3 +23,10 @@ def set_fp32_matmul_policy():
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+
+
+def param_device(params):
+    """The device of a parameter tree (that of its first tensor)."""
+    while isinstance(params, (dict, list, tuple)):
+        params = next(iter(params.values() if isinstance(params, dict) else params))
+    return params.device

@@ -111,6 +111,8 @@ def _warn_saturated(saturated):
 
 @dataclass
 class EspnetTorchModel:
+    bucket_samples = BUCKET_SAMPLES  # the waveform padding grid (serving batchers read it)
+
     params: dict
     fe_cfg: FrontendConfig
     enc_cfg: FastConformerConfig

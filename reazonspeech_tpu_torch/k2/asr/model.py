@@ -62,6 +62,8 @@ def k2_forward(params, waveform, lengths, fe_cfg: FrontendConfig, enc_cfg: Zipfo
 
 @dataclass
 class K2TorchModel:
+    bucket_samples = BUCKET_SAMPLES  # the waveform padding grid (serving batchers read it)
+
     params: dict
     fe_cfg: FrontendConfig
     enc_cfg: ZipformerConfig

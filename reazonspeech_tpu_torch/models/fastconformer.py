@@ -50,8 +50,8 @@ from .layers import (
     layer_norm_init, swish,
 )
 
-__all__ = ["FastConformerConfig", "attention_route", "fastconformer_encode",
-           "init_fastconformer"]
+__all__ = ["FastConformerConfig", "attention_route", "encoder_output_length",
+           "fastconformer_encode", "init_fastconformer"]
 
 
 @dataclass(frozen=True)
@@ -144,6 +144,13 @@ def _stack(trees):
     if isinstance(trees[0], dict):
         return {k: _stack([t[k] for t in trees]) for k in trees[0]}
     return torch.stack(trees)
+
+
+def encoder_output_length(n_frames, cfg: FastConformerConfig):
+    """Encoder frames produced for ``n_frames`` feature frames: the host
+    mirror of the length arithmetic in :func:`_subsample` (the serving
+    executor's lane clocks run on it, with no device readback)."""
+    return _sub_out_dim(n_frames, int(np.log2(cfg.subsampling_factor)), cfg.subsampling_style)
 
 
 def _sub_out_dim(n, stages, style="dw_striding"):

@@ -74,6 +74,8 @@ def default_ja_tokenizer(vocab_size: int) -> CharTokenizer:
 
 @dataclass
 class NemoTorchModel:
+    bucket_samples = BUCKET_SAMPLES  # the waveform padding grid (serving batchers read it)
+
     params: dict
     fe_cfg: FrontendConfig
     enc_cfg: FastConformerConfig

@@ -32,6 +32,9 @@ ESPNET_MODULES = [
 # the beam decoders' step kernels
 DECODE_STEP_MODULES = ["reazonspeech_tpu_torch." + m
                        for m in ("ops.lstm_step", "ops.beam_topk", "decoding.rnnt_beam")]
+# the serving stack
+SERVING_MODULES = ["reazonspeech_tpu_torch.serving." + m
+                   for m in ("batcher", "continuous", "http")] + ["reazonspeech_tpu_torch.serving"]
 # the checkpoint converters
 CONVERT_MODULES = ["reazonspeech_tpu_torch.convert." + m
                    for m in ("torch_utils", "quantize", "onnx_reader", "nemo_fastconformer",
@@ -81,8 +84,8 @@ def test_port_imports_no_jax():
     n_modules, leaked = first.split()[0], first.strip().partition(" ")[2]
     assert int(n_modules) >= 20
     assert leaked == "", f"imported by the port: {leaked}"
-    missing = sorted(set(ESPNET_MODULES + DECODE_STEP_MODULES + CONVERT_MODULES)
-                     - set(names.split()))
+    missing = sorted(set(ESPNET_MODULES + DECODE_STEP_MODULES + CONVERT_MODULES
+                         + SERVING_MODULES) - set(names.split()))
     assert not missing, f"not imported: {missing}"
 
 
@@ -93,3 +96,28 @@ def test_converters_run_without_jax():
     assert out.returncode == 0, out.stderr
     leaked = out.stdout.strip().splitlines()[-1] if out.stdout.strip() else ""
     assert leaked == "", f"loaded by the converters: {leaked}"
+
+
+# the server's entry point, run as its module: the flags parse and the
+# serving stack loads with neither JAX nor the JAX package
+_SERVE_HELP = """
+import runpy, sys
+sys.argv = ["http", "--help"]
+try:
+    runpy.run_module("reazonspeech_tpu_torch.serving.http", run_name="__main__")
+except SystemExit as e:
+    assert e.code == 0, e.code
+print("loaded:" + ",".join(sorted(
+    m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib"))
+    or m == "reazonspeech_tpu" or m.startswith("reazonspeech_tpu."))))
+"""
+
+
+def test_server_entry_point_runs_without_jax():
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run([sys.executable, "-c", _SERVE_HELP], env=env, cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert "--continuous" in out.stdout and "--max-pending" in out.stdout
+    leaked = out.stdout.strip().splitlines()[-1]
+    assert leaked == "loaded:", f"loaded by the server: {leaked}"
