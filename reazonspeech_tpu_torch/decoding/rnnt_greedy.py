@@ -7,6 +7,17 @@ so the joint runs T + U times per utterance. The loop body is fixed-shape
 tensor ops; finished elements are frozen by masks, and the host checks for
 termination once every ``CHECK_EVERY`` iterations. Runs no kernel.
 
+``frame_window`` W > 1 is the reference's blank-run skipping: each
+iteration runs the joint over the W frames from the element's clock
+against its current prediction output (a blank does not change it), takes
+the first maximum of each (``torch.argmax``, as ``jnp.argmax``), counts
+frames past the element's length as blank, and jumps the leading blank run
+(a cumulative product) in one iteration; where frame 0 emits, the
+iteration emits as with W = 1. The outputs are W = 1's up to the
+reassociation of the [B, W, J] joint's sums, which can only move a
+near-tie. Each iteration still advances a frame or emits, so the bounds
+hold.
+
 The predictor state is either an LSTM ``(h, c)`` pair ([L, B, H] each) or
 the stateless predictor's [B, context_size-1] token context; the loop keeps
 it batch-leading (the reference's ``_state_to_bl`` / ``_state_from_bl``) so
@@ -46,7 +57,7 @@ class GreedyDecodeConfig:
 
     max_symbols_per_step: int = 10
     max_tokens: int = 0  # 0 -> T
-    frame_window: int = 1  # blank-run skipping is not ported yet
+    frame_window: int = 1  # frames a blank run may jump in one iteration
 
 
 class GreedyLaneState(NamedTuple):
@@ -99,8 +110,10 @@ def _make_body(pred_params, joint_params, enc_proj, enc_lengths, emit_cap, u_max
     shared by the one-shot decode and the segments."""
     b, t, _ = enc_proj.shape
     blank = rnnt_cfg.blank_id
+    w = max(int(decode_cfg.frame_window), 1)
     rows = torch.arange(b, device=enc_proj.device)
     slots = torch.arange(u_max, device=enc_proj.device)[None, :]
+    window = torch.arange(w, device=enc_proj.device)[None, :]
 
     def active(s: GreedyLaneState):
         return (s.time_idx < enc_lengths) & (s.counts < emit_cap)
@@ -108,20 +121,34 @@ def _make_body(pred_params, joint_params, enc_proj, enc_lengths, emit_cap, u_max
     def body(s: GreedyLaneState) -> GreedyLaneState:
         act = active(s)
         force_advance = s.sym_at_frame >= decode_cfg.max_symbols_per_step
-        enc_frame = enc_proj[rows, torch.clamp(s.time_idx, max=t - 1)]
-        logits = joint_step_from_enc_proj(joint_params, enc_frame, s.pred_out, rnnt_cfg)
-        tok = logits.argmax(dim=-1).to(torch.int32)  # first max, as jnp.argmax
-        is_blank = (tok == blank) | force_advance
-        emit = act & ~is_blank
-        advance = act & is_blank
+        if w == 1:
+            enc_frame = enc_proj[rows, torch.clamp(s.time_idx, max=t - 1)]
+            logits = joint_step_from_enc_proj(joint_params, enc_frame, s.pred_out, rnnt_cfg)
+            tok = logits.argmax(dim=-1).to(torch.int32)  # first max, as jnp.argmax
+            is_blank = (tok == blank) | force_advance
+            emit = act & ~is_blank
+            advance_n = (act & is_blank).to(torch.int32)
+        else:
+            # the joint over W frames against the current prediction output
+            at = s.time_idx[:, None] + window  # [B, W]
+            enc_frames = enc_proj[rows[:, None], torch.clamp(at, max=t - 1)]  # [B, W, J]
+            logits = joint_step_from_enc_proj(joint_params, enc_frames, s.pred_out[:, None, :],
+                                              rnnt_cfg)  # [B, W, V]
+            tok_w = logits.argmax(dim=-1).to(torch.int32)
+            tok = tok_w[:, 0]
+            blank_w = (tok_w == blank) | (at >= enc_lengths[:, None])  # past the end: blank
+            blank_w[:, 0] |= force_advance
+            lead = blank_w.to(torch.int32).cumprod(dim=1).sum(dim=1)  # the leading blank run
+            emit = act & (lead == 0)
+            advance_n = torch.where(act, lead, 0).to(torch.int32)
 
         put = (slots == s.counts[:, None]) & emit[:, None]
         tokens = torch.where(put, tok[:, None], s.tokens)
         frames = torch.where(put, s.time_idx[:, None], s.frames)
         counts = s.counts + emit.to(torch.int32)
         sym_at_frame = torch.where(emit, s.sym_at_frame + 1, s.sym_at_frame)
-        time_idx = s.time_idx + advance.to(torch.int32)
-        sym_at_frame = torch.where(advance, 0, sym_at_frame)
+        time_idx = s.time_idx + advance_n
+        sym_at_frame = torch.where(advance_n > 0, 0, sym_at_frame)
 
         last_tok = torch.where(emit, tok, s.last_tok)
         step_out, step_state = predictor_step(
@@ -146,8 +173,6 @@ def rnnt_greedy_decode(pred_params, joint_params, enc, enc_lengths, rnnt_cfg: RN
     Returns (tokens [B, U] int32 padded with blank_id, frames [B, U] int32
     encoder frame of each emission, counts [B] int32).
     """
-    if decode_cfg.frame_window != 1:
-        raise ValueError("frame_window > 1 is not ported yet")
     b, t, _ = enc.shape
     u_max = decode_cfg.max_tokens or t
     enc_lengths = enc_lengths.to(torch.int32)
@@ -187,8 +212,6 @@ def greedy_state_init(pred_params, b: int, rnnt_cfg: RNNTConfig,
     if cfg.max_tokens <= 0:
         raise ValueError("greedy_state_init: cfg.max_tokens must be set for segmented "
                          "decode (the emission buffer cannot default to T)")
-    if cfg.frame_window != 1:
-        raise ValueError("frame_window > 1 is not ported yet")
     return _greedy_init(pred_params, b, cfg.max_tokens, rnnt_cfg, param_device(pred_params))
 
 

@@ -47,7 +47,23 @@ The per-pop joint tail and the predictor step take ALSD's branches
 reference). The ops launch their kernels on CUDA tensors and run their plain
 twins on CPU ones. ``unroll`` is accepted
 and changes nothing (the reference's unrolling is exact, and the eager loop
-has nothing to unroll). ``multipop`` other than 1 is not ported (ROADMAP).
+has nothing to unroll).
+
+``multipop`` M > 1 is the reference's speculative round: the top M pending
+hypotheses (a stable descending sort, ties to the lower column as
+``lax.top_k``) take one predictor step and one joint tail on B·M rows, and
+the round accepts exactly the prefix the serial loop would have popped
+(a child scores no more than its parent, so the i-th snapshot entry comes
+before any child of entries 1..i-1 iff it scores at least their best
+child, by a cumulative max) and ESPnet's termination test is evaluated at
+each prefix position. The outputs are ``multipop=1``'s; the rounds are
+fewer. Node slots advance by the round's largest accepted count, in an
+arena of ``max_pops_per_frame · multipop_arena_factor`` pops; a frame that
+exhausts it ends for its still-active lanes, which ``saturated`` reports.
+The write windows start at a device index, so a round reads nothing on the
+host. A frame needs at least ``beam`` pops and a round accepts at most M,
+so the first ``ceil(beam / M)`` rounds go out without a look; the lagged
+done flags follow, as for the pops.
 
 ``graves_state_init`` / ``graves_beam_segment`` / ``graves_finalize`` are
 the reference's segmented API (behind ``serving/continuous.py``): the state
@@ -99,26 +115,44 @@ def _check_supported(rnnt_cfg: RNNTConfig, cfg: GravesBeamConfig):
         raise NotImplementedError("graves beam search: LSTM predictors only")
     if not rnnt_cfg.blank_first:
         raise NotImplementedError("espnet convention: blank id 0")
-    if cfg.multipop != 1:
-        raise NotImplementedError(
-            f"GravesBeamConfig.multipop={cfg.multipop!r} is not ported yet "
-            "(ROADMAP.md, queue 1 item 15: the opt-in knobs)")
     for name in ("topk_impl", "joint_impl", "lstm_impl"):
         if getattr(cfg, name) not in ("xla", "pallas"):
             raise ValueError(f"unknown {name} {getattr(cfg, name)!r}")
 
 
-def _dims(rnnt_cfg: RNNTConfig, cfg: GravesBeamConfig, t):
-    """(k, beam_k, p_max, kc, u_buf, n_nodes, c_pend) as in the reference."""
+class _Dims(NamedTuple):
+    k: int  # beam
+    beam_k: int  # label expansions a pop
+    p_max: int  # pops a frame
+    kc: int  # survivor slots
+    u_buf: int  # emission buffer
+    m_pop: int  # pops a round (multipop)
+    cap_pops: int  # node-arena pop budget a frame
+    n_nodes: int  # node-arena slots
+    c_pend: int  # pending columns
+
+
+def _dims(rnnt_cfg: RNNTConfig, cfg: GravesBeamConfig, t) -> _Dims:
+    """The reference's static sizes."""
     v = rnnt_cfg.num_classes
     k = min(cfg.beam_size, v)
     beam_k = min(k, v - 1)
     p_max = cfg.max_pops_per_frame or (6 * k + 8)
     kc = cfg.kept_capacity or (k + 12)
     u_buf = cfg.max_tokens or t
-    n_nodes = kc + p_max + 1  # +1 scratch row
-    c_pend = kc + p_max * beam_k + beam_k  # + scratch block
-    return k, beam_k, p_max, kc, u_buf, n_nodes, c_pend
+    m_pop = max(1, min(cfg.multipop, p_max))
+    if m_pop > 1:
+        # slots advance by each round's largest accepted count; the budget
+        # past p_max absorbs skew across lanes, the last m_pop rows are an
+        # overflow scratch window nothing references
+        cap_pops = max(p_max, int(p_max * cfg.multipop_arena_factor + 0.5))
+        n_nodes = kc + cap_pops + 2 * m_pop
+        c_pend = kc + (cap_pops + 2 * m_pop) * beam_k
+    else:
+        cap_pops = p_max
+        n_nodes = kc + p_max + 1  # +1 scratch row
+        c_pend = kc + p_max * beam_k + beam_k  # + scratch block
+    return _Dims(k, beam_k, p_max, kc, u_buf, m_pop, cap_pops, n_nodes, c_pend)
 
 
 class _Frame:
@@ -126,12 +160,12 @@ class _Frame:
     ``pop_body``), on the node arenas of the whole decode."""
 
     def __init__(self, arenas, cs, in_frame, enc_row, f, pred_step, joint_step, dims):
-        self.a = arenas
-        self.k, self.beam_k, self.p_max, self.kc, self.u_buf, _, c_pend = dims
+        self.a, self.d = arenas, dims
+        self.k, self.beam_k, self.p_max, self.kc, self.u_buf = dims[:5]
         self.pred_step, self.joint_step = pred_step, joint_step
         self.enc_row, self.f = enc_row, f
         b, dev = cs.shape[0], cs.device
-        self.c_pend = c_pend
+        self.c_pend = c_pend = dims.c_pend
         self.bi = torch.arange(b, device=dev)
         self.upos = torch.arange(self.u_buf, device=dev)[None, :]
         # pending = the survivors of lanes in this frame; kept empty
@@ -145,6 +179,7 @@ class _Frame:
         self.pop_i = torch.zeros((b,), dtype=torch.int32, device=dev)
         self.frame_done = ~in_frame
         self.saturated = torch.zeros((b,), dtype=torch.bool, device=dev)
+        self.nbase = torch.full((), self.kc, dtype=torch.long, device=dev)  # a round's first slot
 
     def pop(self, it):
         """Pop ``it`` of this frame: every active lane pops its best pending
@@ -198,17 +233,117 @@ class _Frame:
         self.frame_done |= active & ((n_above >= self.k) | hit_cap)
         self.saturated |= active & hit_cap & (n_above < self.k)
 
+    def round(self, it):
+        """One multipop round (the reference's ``round_body``): every active
+        lane expands its top ``m_pop`` pending hypotheses at once and accepts
+        the prefix the serial pops would have taken; their nodes go to arena
+        slots ``nbase``.. (the overflow window once the budget is spent), not
+        to ``it``'s, which only a pop uses."""
+        a, bi, kc, m = self.a, self.bi, self.kc, self.d.m_pop
+        beam_k, p_max = self.beam_k, self.p_max
+        b, dev = self.ps.shape[0], self.ps.device
+        layers, hid = a["pre_h"].shape[2:]
+        mi = torch.arange(m, device=dev)
+        active = ~self.frame_done
+        # overflow: no write window left; the round accepts nothing, its
+        # writes land in the tail window and the active lanes end saturated
+        ovf = self.nbase + m > kc + self.d.cap_pops + m
+        nbase = torch.where(ovf, kc + self.d.cap_pops + m, self.nbase)
+
+        # the top-M pending snapshot, in the serial argmax order, ties included
+        vals, idx = torch.sort(self.ps, dim=1, descending=True, stable=True)
+        s, idxm, p_rest = vals[:, :m], idx[:, :m], vals[:, m]
+        node = self.pnode.gather(1, idxm)  # [B, M]
+        tok = self.ptok.gather(1, idxm)
+        is_ext = tok >= 0
+
+        def prow(name):
+            return a[name][bi[:, None], node]
+
+        ext4 = is_ext[:, :, None, None]
+        pre_h = torch.where(ext4, prow("post_h"), prow("pre_h"))  # [B, M, L, H]
+        pre_c = torch.where(ext4, prow("post_c"), prow("pre_c"))
+        last = torch.where(is_ext, tok, prow("last"))
+        cnt_parent = prow("cnt")
+        cnt = cnt_parent + is_ext.to(torch.int32)
+
+        bm = b * m
+        dec_out, post_h, post_c = self.pred_step(last.reshape(bm), pre_h.reshape(bm, layers, hid),
+                                                 pre_c.reshape(bm, layers, hid))
+        enc_rows = self.enc_row[:, None, :].expand(b, m, self.enc_row.shape[-1]).reshape(bm, -1)
+        lp_blank, top_lp, top_tok = self.joint_step(enc_rows, dec_out)
+        lp_blank = lp_blank.reshape(b, m)
+        top_lp, top_tok = top_lp.reshape(b, m, beam_k), top_tok.reshape(b, m, beam_k)
+
+        # the serial order: entry i is popped before any child of entries
+        # 0..i-1 iff it scores at least their best child
+        kb = s + lp_blank  # each pop's kept (blank extension) score
+        can_ext = cnt < self.u_buf
+        inc_cmax = torch.where(can_ext, s + top_lp[:, :, 0], _DEAD).cummax(dim=1).values
+        exc_cmax = torch.cat([torch.full((b, 1), -torch.inf, device=dev), inc_cmax[:, :-1]],
+                             dim=1)
+        vpfx = (s >= exc_cmax).to(torch.int32).cumprod(dim=1).bool()
+        # the best pending after pop i (the children of pops 0..i included)
+        m_after = torch.maximum(torch.cat([s[:, 1:], p_rest[:, None]], dim=1), inc_cmax)
+        n_old = (self.ks[:, None, :] > m_after[:, :, None]).sum(dim=2)
+        tri = torch.ones((m, m), dtype=torch.bool, device=dev).tril()  # [i, j]: j <= i
+        n_new = ((kb[:, None, :] > m_after[:, :, None]) & tri).sum(dim=2)
+        term = (n_old + n_new) >= self.k
+        cap = (self.pop_i[:, None] + 1 + mi) >= p_max
+        done_eff = vpfx & (term | cap)
+        any_done = done_eff.any(dim=1)
+        first = torch.where(done_eff, mi, m).amin(dim=1).clamp(max=m - 1)  # the first done
+        a_cnt = torch.where(any_done, first + 1, vpfx.sum(dim=1))
+        a_cnt = torch.where(active & ~ovf, a_cnt, 0).to(torch.int32)
+        acc = mi < a_cnt[:, None]  # [B, M]
+        sat_i = (cap & ~term).gather(1, first[:, None])[:, 0]
+        self.saturated |= active & ((~ovf & any_done & sat_i) | ovf)
+        self.frame_done |= active & (ovf | any_done)
+
+        # the accepted pops leave the pending set
+        self.ps.scatter_(1, idxm, torch.where(acc, _DEAD, s))
+        # kept: the accepted pops' blank extensions at columns pop_i + j
+        cols = torch.arange(p_max + 1, device=dev)
+        hit = (cols == (self.pop_i[:, None] + mi)[:, :, None]) & acc[:, :, None]  # [B, M, P+1]
+        hit_any = hit.any(dim=1)
+        q = nbase + mi  # the round's node slots
+        self.ks = torch.where(hit_any, torch.where(hit, kb[:, :, None], 0.0).sum(dim=1), self.ks)
+        self.knode = torch.where(hit_any, torch.where(hit, q[:, None], 0).sum(dim=1),
+                                 self.knode)
+        # pending: the accepted pops' label extensions at lane-uniform columns
+        # (an unaccepted pop's block is dead and past every accepted region)
+        cols = kc + (nbase - kc) * beam_k + torch.arange(m * beam_k, device=dev)
+        child_s = torch.where((acc & can_ext)[:, :, None], s[:, :, None] + top_lp, _DEAD)
+        self.ps.index_copy_(1, cols, child_s.reshape(b, -1))
+        self.pnode.index_copy_(1, cols, q.repeat_interleave(beam_k).expand(b, -1))
+        self.ptok.index_copy_(1, cols, top_tok.reshape(b, -1))
+
+        # the node arena: one [B, M] window a tensor
+        put = is_ext[:, :, None] & (self.upos[None] == cnt_parent[:, :, None])
+        rows = {"tokens": torch.where(put, tok[:, :, None], prow("tokens")),
+                "frames": torch.where(put, self.f[:, :, None], prow("frames")),
+                "cnt": cnt, "last": last, "pre_h": pre_h, "pre_c": pre_c,
+                "post_h": post_h.reshape(b, m, layers, hid),
+                "post_c": post_c.reshape(b, m, layers, hid)}
+        for name, blk in rows.items():
+            a[name].index_copy_(1, q, blk)
+        self.pop_i += a_cnt
+        self.nbase = torch.where(ovf, self.nbase, self.nbase + a_cnt.max())
+
     def run(self, waits):
-        """Issue pops until every lane's frame is done (see the module notes
-        on host syncs); returns the pops issued. ``waits`` counts the times
-        the host waited for a flag that had not landed."""
+        """Issue pops (rounds where ``multipop`` > 1) until every lane's
+        frame is done (see the module notes on host syncs); returns the
+        iterations issued. ``waits`` counts the times the host waited for a
+        flag that had not landed."""
+        m = self.d.m_pop
+        step = self.pop if m == 1 else self.round
         it = 0
-        for _ in range(min(self.k, self.p_max)):
-            self.pop(it)
+        for _ in range(min(-(-self.k // m), self.p_max)):
+            step(it)
             it += 1
         if self.ps.device.type != "cuda":
             while it < self.p_max and not bool(self.frame_done.all()):
-                self.pop(it)
+                step(it)
                 it += 1
             return it
         flags = torch.empty((self.p_max + 1,), dtype=torch.bool, pin_memory=True)
@@ -233,7 +368,7 @@ class _Frame:
                     break
             if done:
                 break
-            self.pop(it)
+            step(it)
             it += 1
             post(it)
         return it
@@ -282,7 +417,7 @@ _SURVIVORS = (("st", "tokens"), ("sf", "frames"), ("sc", "cnt"), ("slast", "last
 
 
 def _fresh_state(b, rnnt_cfg: RNNTConfig, cfg: GravesBeamConfig, u_buf, device):
-    kc = _dims(rnnt_cfg, cfg, u_buf)[3]
+    kc = _dims(rnnt_cfg, cfg, u_buf).kc
     layers, hid = rnnt_cfg.pred_rnn_layers, rnnt_cfg.pred_hidden
     i32 = dict(dtype=torch.int32, device=device)
     f32 = dict(dtype=torch.float32, device=device)
@@ -317,7 +452,7 @@ def _run_frames(pred_params, joint_params, enc_proj, lane_len, state: GravesBeam
     b, t_buf, _ = enc_proj.shape
     dev = enc_proj.device
     dims = _dims(rnnt_cfg, cfg, state.st.shape[-1])
-    k, beam_k, _, kc, u_buf, n_nodes, _ = dims
+    k, beam_k, kc, u_buf, n_nodes = dims.k, dims.beam_k, dims.kc, dims.u_buf, dims.n_nodes
     layers, hid = rnnt_cfg.pred_rnn_layers, rnnt_cfg.pred_hidden
     pred_step = _make_pred_step(pred_params, rnnt_cfg, cfg)
     joint_step = joint_tail(joint_params, rnnt_cfg, cfg, beam_k)
@@ -419,7 +554,9 @@ def graves_beam_decode_stats(pred_params, joint_params, enc, enc_lengths, rnnt_c
                              cfg: GravesBeamConfig = GravesBeamConfig()):
     """:func:`graves_beam_decode` plus the pop telemetry: ``(pmax [B], ptot
     [B], host)``, the most pops a lane needed in one frame, each lane's
-    total, and the host's counters {frames, pops_issued, waits}."""
+    total, and the host's counters {frames, pops_issued, waits}
+    (``pops_issued``: the pops, or with ``multipop`` > 1 the rounds, the
+    host issued)."""
     out, (pmax, ptot, host) = _decode(pred_params, joint_params, enc, enc_lengths, rnnt_cfg,
                                       cfg)
     return out + (pmax, ptot, host)

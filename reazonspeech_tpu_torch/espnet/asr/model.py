@@ -5,7 +5,7 @@ Port of ``reazonspeech_tpu.espnet.asr.model``: log-mel (espnet preset) →
 GlobalMVN → Conformer encoder (``models/conformer.py``) → one encoder pass
 shared by the CTC head (blank detection, alignment) and the transducer
 decode: Graves beam search (ESPnet's ``default_beam_search``, beam 20, the
-default), ALSD or greedy.
+default), mAES (ESPnet's ``search_type="maes"``), ALSD or greedy.
 
 On a CUDA device, ``load_model_container`` serves the reference's TPU
 serving configuration (``_tpu_serving_overrides``): the attention, conv
@@ -32,6 +32,7 @@ from ...core.tokenizer import CharTokenizer
 from ...decoding.rnnt_beam import BeamDecodeConfig, rnnt_beam_decode
 from ...decoding.rnnt_greedy import GreedyDecodeConfig, rnnt_greedy_decode
 from ...decoding.transducer_graves import GravesBeamConfig, graves_beam_decode
+from ...decoding.transducer_maes import MAESBeamConfig, maes_beam_decode
 from ...device import resolve_device, set_fp32_matmul_policy
 from ...frontend.features import FrontendConfig, espnet_frontend_config, log_mel_spectrogram
 from ...models.conformer import (
@@ -81,6 +82,8 @@ def encode_ctc_decode(params, waveform, lengths, fe_cfg: FrontendConfig,
     if isinstance(decode_cfg, GravesBeamConfig):
         tokens, frames, counts, _, saturated = graves_beam_decode(
             pp, jp, enc, elens, rnnt_cfg, decode_cfg)
+    elif isinstance(decode_cfg, MAESBeamConfig):
+        tokens, frames, counts, _ = maes_beam_decode(pp, jp, enc, elens, rnnt_cfg, decode_cfg)
     elif isinstance(decode_cfg, BeamDecodeConfig):
         tokens, frames, counts, _ = rnnt_beam_decode(pp, jp, enc, elens, rnnt_cfg, decode_cfg)
     else:
@@ -224,8 +227,9 @@ def load_model_container(
     raises without a GPU; pass ``device="cpu"`` for the CPU).
 
     ``decoding``: "beam" (the default: ESPnet's ``default_beam_search`` at
-    width 20, Graves), "alsd" (the NeMo-style alignment-synchronous beam) or
-    "greedy". "maes" is not ported yet and raises NotImplementedError.
+    width 20, Graves), "maes" (ESPnet's alignment-synchronous mAES at width
+    ``beam_size``), "alsd" (the NeMo-style alignment-synchronous beam) or
+    "greedy". On CUDA the beam searches take the top-m kernel.
 
     Weights: ``checkpoint=`` path > $REAZONSPEECH_TPU_ESPNET_CHECKPOINT > the
     converted-tree cache shared with the JAX package > a locally cached HF
@@ -237,11 +241,7 @@ def load_model_container(
     an encoder config not passed explicitly is the serving configuration
     (see module notes).
     """
-    if decoding == "maes":
-        raise NotImplementedError(
-            "espnet decoding='maes' is not ported yet (ROADMAP.md, queue 1 item 7); "
-            "use decoding='beam'")
-    if decoding not in ("beam", "alsd", "greedy"):
+    if decoding not in ("beam", "maes", "alsd", "greedy"):
         raise ValueError(f"Unknown decoding: '{decoding}'")
     device = resolve_device(device)
     on_cuda = device.type == "cuda"
@@ -294,6 +294,8 @@ def load_model_container(
     topk_impl = "pallas" if on_cuda else "xla"
     if decoding == "beam":
         decode_cfg = GravesBeamConfig(beam_size=beam_size, topk_impl=topk_impl)
+    elif decoding == "maes":
+        decode_cfg = MAESBeamConfig(beam_size=beam_size, topk_impl=topk_impl)
     elif decoding == "alsd":
         decode_cfg = BeamDecodeConfig(beam_size=beam_size, topk_impl=topk_impl)
     else:

@@ -15,6 +15,11 @@ through one adapter seam:
 - **Graves beam** (espnet, ``decoding/transducer_graves.py``): lanes are
   frame-clocked; the quantum is ``frames_per_segment`` encoder frames and a
   lane is done at ``fidx >= lane_len``, which the host knows.
+- **mAES beam** (espnet ``decoding="maes"``,
+  ``decoding/transducer_maes.py``): frame-clocked as Graves, a segment
+  exactly ``frames_per_segment`` frame bodies; its ``fidx >= lane_len``
+  also comes back through the lagged done flags (it has no done flag of
+  its own).
 - **ALSD beam** (nemo, ``decoding/rnnt_beam.py``): lanes are
   alignment-step-clocked; completion is data-dependent (the beam can die
   before the ``lane_len + floor(ratio·lane_len)`` step bound), so the
@@ -61,6 +66,9 @@ from ..decoding.rnnt_greedy import (
 )
 from ..decoding.transducer_graves import (
     GravesBeamConfig, graves_beam_segment, graves_finalize, graves_state_init,
+)
+from ..decoding.transducer_maes import (
+    MAESBeamConfig, maes_beam_segment, maes_finalize, maes_state_init,
 )
 from ..frontend.features import log_mel_spectrogram, num_frames
 from ..models.fastconformer import encoder_output_length, fastconformer_encode
@@ -121,6 +129,25 @@ class _GravesAdapter:
         return graves_finalize(state, lane_len, self.model.rnnt_cfg, self.cfg)[:3]
 
 
+class _MAESAdapter(_GravesAdapter):
+    """Frame-clocked segmented mAES beam (espnet ``decoding="maes"``): the
+    Graves adapter's lane contract; the harvest also reads ``fidx >=
+    lane_len`` through the lagged done flags."""
+
+    def state_init(self, n_lanes):
+        return maes_state_init(self.model.params["predictor"], n_lanes, self.model.rnnt_cfg,
+                               self.cfg)
+
+    def segment_call(self, params, ring, lane_len, reset, state, n, frames_left):
+        state = maes_beam_segment(params["predictor"], params["joint"], ring, lane_len, reset,
+                                  state, self.model.rnnt_cfg, self.cfg, n,
+                                  frames_left=frames_left)
+        return state, state.fidx >= lane_len
+
+    def finalize_call(self, state, lane_len):
+        return maes_finalize(state, lane_len, self.model.rnnt_cfg, self.cfg)[:3]
+
+
 class _ALSDAdapter:
     """Alignment-step-clocked segmented ALSD beam (nemo flavor)."""
 
@@ -173,19 +200,18 @@ class _GreedyAdapter:
 
 def _adapter(model, t_buf):
     cfg = model.decode_cfg
-    if type(cfg).__name__ == "MAESBeamConfig":
-        raise TypeError("ContinuousBatcher: the mAES beam (decoding='maes') is not ported yet "
-                        "(ROADMAP.md, queue 1 item 4); serve espnet with decoding='beam'")
     if isinstance(cfg, GravesBeamConfig):
         return _GravesAdapter(model, t_buf)
+    if isinstance(cfg, MAESBeamConfig):
+        return _MAESAdapter(model, t_buf)
     if isinstance(cfg, BeamDecodeConfig):
         return _ALSDAdapter(model, t_buf)
     if isinstance(cfg, GreedyDecodeConfig):
         return _GreedyAdapter(model, t_buf)
     raise TypeError(
         "ContinuousBatcher drives a segmented transducer decode; the container's decode_cfg "
-        "must be a GravesBeamConfig (espnet), BeamDecodeConfig (nemo ALSD) or "
-        f"GreedyDecodeConfig (nemo/k2/espnet greedy), got {type(cfg).__name__}.")
+        "must be a GravesBeamConfig or MAESBeamConfig (espnet), BeamDecodeConfig (nemo ALSD) "
+        f"or GreedyDecodeConfig (nemo/k2/espnet greedy), got {type(cfg).__name__}.")
 
 
 class _ToHost:
@@ -214,11 +240,11 @@ class ContinuousBatcher:
 
     Args:
       model: a flavor container whose ``decode_cfg`` selects the decode:
-        :class:`GravesBeamConfig` (espnet), :class:`BeamDecodeConfig` (nemo
-        ALSD, or k2/espnet beam), or :class:`GreedyDecodeConfig` (k2 and the
-        nemo/espnet greedy options)
+        :class:`GravesBeamConfig` or :class:`MAESBeamConfig` (espnet),
+        :class:`BeamDecodeConfig` (nemo ALSD, or k2/espnet beam), or
+        :class:`GreedyDecodeConfig` (k2 and the nemo/espnet greedy options)
       n_lanes: the lane pool's width (every segment runs all lanes)
-      frames_per_segment: the recycling quantum: encoder frames (Graves),
+      frames_per_segment: the recycling quantum: encoder frames (Graves, mAES),
         alignment steps (ALSD) or loop iterations (greedy) each lane
         advances per tick
       max_seconds: longest utterance a lane takes (:meth:`submit_long`
@@ -651,7 +677,10 @@ class ContinuousBatcher:
         ``e`` and drop the device state: the fault may have left it
         poisoned, and resuming on it would decode garbage into the next
         occupants' lanes. The next tick makes a fresh one (and fails its
-        requests if it cannot)."""
+        requests if it cannot). Only the requests queued before the fault
+        are failed: one submitted once its predecessors have failed is
+        served."""
+        queued = self._queue.qsize()  # any behind these came after the fault
         for fut in held:
             if not fut.done():
                 fut.set_exception(e)
@@ -663,7 +692,7 @@ class ContinuousBatcher:
         self._done_skip[:] = False
         self._done_pending = None
         self._state = self._ring = None
-        while True:
+        for _ in range(queued):
             try:
                 item = self._queue.get_nowait()
             except queue.Empty:

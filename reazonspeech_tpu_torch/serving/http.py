@@ -273,7 +273,7 @@ def main(argv=None):
                          "the flavor's resolution order)")
     ap.add_argument("--decoding", default=None,
                     help="decode strategy override (flavor default when omitted): nemo "
-                         "alsd|greedy, espnet beam|alsd|greedy, k2 greedy|beam")
+                         "alsd|greedy, espnet beam|maes|alsd|greedy, k2 greedy|beam")
     ap.add_argument("--host", default="0.0.0.0")
     ap.add_argument("--port", type=int, default=8080)
     ap.add_argument("--max-batch", type=int, default=32)

@@ -170,9 +170,15 @@ def test_unported_settings_raise(setup):
                 dict(conv_norm="group_norm"), dict(seq_axis="seq")):
         with pytest.raises(ValueError):
             tfc.fastconformer_encode(p, feats, lens, replace(tenc, **bad))
-    # the stateless predictor is ported (k2); greedy blank-run skipping is not
+    # the stateless predictor (k2) and greedy blank-run skipping are ported:
+    # frame_window=4 is accepted and decodes as window 1 on one input
     from reazonspeech_tpu_torch.decoding import rnnt_greedy as tgreedy
 
-    with pytest.raises(ValueError):
-        tgreedy.rnnt_greedy_decode({}, {}, torch.zeros(1, 4, tr.enc_dim), torch.tensor([4]), tr,
-                                   tgreedy.GreedyDecodeConfig(frame_window=4))
+    pp, jp = params_from_numpy(tree["predictor"]), params_from_numpy(tree["joint"])
+    enc = torch.from_numpy(np.random.default_rng(8).standard_normal((1, 4, tr.enc_dim),
+                                                                    dtype=np.float32))
+    outs = [tgreedy.rnnt_greedy_decode(pp, jp, enc, torch.tensor([4]), tr,
+                                       tgreedy.GreedyDecodeConfig(frame_window=w))
+            for w in (1, 4)]
+    for got, want in zip(*outs):
+        assert torch.equal(got, want)

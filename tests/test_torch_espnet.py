@@ -29,6 +29,7 @@ from reazonspeech_tpu_torch.convert.from_jax import params_from_numpy
 from reazonspeech_tpu_torch.core.hub import CheckpointNotFoundError
 from reazonspeech_tpu_torch.decoding import ctc as tctc
 from reazonspeech_tpu_torch.decoding import transducer_graves as tgraves
+from reazonspeech_tpu_torch.decoding.transducer_maes import MAESBeamConfig
 from reazonspeech_tpu_torch.espnet.asr import (
     TranscribeConfig, audio_from_numpy, load_model, transcribe,
 )
@@ -291,13 +292,10 @@ def test_graves_stats_and_unported_knobs():
     for knob in (dict(multipop=4), dict(unroll=2), dict(joint_impl="pallas"),
                  dict(lstm_impl="pallas")):
         cfg = tgraves.GravesBeamConfig(beam_size=4, **knob)
-        if "multipop" in knob:  # the one opt-in knob still unported
-            with pytest.raises(NotImplementedError, match="ROADMAP"):
-                tgraves.graves_beam_decode(pp, jp, enc, lens, rcfg, cfg)
-            continue
-        # unroll is exact (accepted, changes nothing); the step kernels' fp32
-        # twins on this fp32 config give the same search; pred_hidden=64
-        # leaves lstm_impl to the guard (no kernel), as in the reference
+        # unroll and multipop are exact (the same search, multipop in fewer
+        # rounds); the step kernels' fp32 twins on this fp32 config give the
+        # same search; pred_hidden=64 leaves lstm_impl to the guard (no
+        # kernel), as in the reference
         got = tgraves.graves_beam_decode(pp, jp, enc, lens, rcfg, cfg)
         for i in (0, 1, 2, 4):
             assert torch.equal(got[i], want[i]), knob
@@ -425,8 +423,8 @@ def test_load_model_errors(empty_caches):
     """No checkpoint anywhere: CheckpointNotFoundError offering
     checkpoint="random", never random weights; a snapshot whose .pth is
     empty reaches the converter, whose error propagates as the JAX loader's
-    does on the same snapshot (no tree cached); maes raises
-    NotImplementedError, an unknown decoding ValueError."""
+    does on the same snapshot (no tree cached); maes loads as mAES at the
+    beam size asked for, an unknown decoding raises ValueError."""
     with pytest.raises(CheckpointNotFoundError, match="random"):
         load_model("cpu")
     snap = (empty_caches / "hub" / "models--reazon-research--reazonspeech-espnet-v2"
@@ -441,8 +439,9 @@ def test_load_model_errors(empty_caches):
     assert type(errors[0]) is type(errors[1]) and str(errors[0]) == str(errors[1])
     assert not isinstance(errors[0], CheckpointNotFoundError)
     assert not list((empty_caches / "cache").rglob("*.npz"))
-    with pytest.raises(NotImplementedError, match="maes"):
-        load_model("cpu", checkpoint="random", decoding="maes")
+    maes = load_model("cpu", checkpoint="random", decoding="maes", beam_size=6,
+                      enc_cfg=tconf.espnet_encoder_config(**ENC))
+    assert maes.decode_cfg == MAESBeamConfig(beam_size=6)
     with pytest.raises(ValueError, match="Unknown decoding"):
         load_model("cpu", checkpoint="random", decoding="viterbi")
 

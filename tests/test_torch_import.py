@@ -35,6 +35,12 @@ DECODE_STEP_MODULES = ["reazonspeech_tpu_torch." + m
 # the serving stack
 SERVING_MODULES = ["reazonspeech_tpu_torch.serving." + m
                    for m in ("batcher", "continuous", "http")] + ["reazonspeech_tpu_torch.serving"]
+# the decode options, the host-side modules and the v1 and 1seg pipelines
+PIPELINE_MODULES = ["reazonspeech_tpu_torch." + m for m in (
+    "decoding.transducer_maes", "core.text", "core.fs", "espnet.oneseg", "oneseg",
+    "oneseg.interface", "oneseg.text", "oneseg.encoding", "oneseg.caption",
+    "oneseg.sentence", "oneseg.utils", "oneseg.align", "v1", "v1.interface",
+    "v1.transcribe", "v1.cli")]
 # the checkpoint converters
 CONVERT_MODULES = ["reazonspeech_tpu_torch.convert." + m
                    for m in ("torch_utils", "quantize", "onnx_reader", "nemo_fastconformer",
@@ -85,7 +91,7 @@ def test_port_imports_no_jax():
     assert int(n_modules) >= 20
     assert leaked == "", f"imported by the port: {leaked}"
     missing = sorted(set(ESPNET_MODULES + DECODE_STEP_MODULES + CONVERT_MODULES
-                         + SERVING_MODULES) - set(names.split()))
+                         + SERVING_MODULES + PIPELINE_MODULES) - set(names.split()))
     assert not missing, f"not imported: {missing}"
 
 
@@ -121,3 +127,32 @@ def test_server_entry_point_runs_without_jax():
     assert "--continuous" in out.stdout and "--max-pending" in out.stdout
     leaked = out.stdout.strip().splitlines()[-1]
     assert leaked == "loaded:", f"loaded by the server: {leaked}"
+
+
+# the v1 CLI, run as its module: its help prints with neither JAX nor the
+# JAX package loaded, and its data files (the symbol and gaiji tables) are
+# the port's own
+_V1_HELP = """
+import runpy, sys
+sys.argv = ["v1", "--help"]
+try:
+    runpy.run_module("reazonspeech_tpu_torch.v1.cli", run_name="__main__")
+except SystemExit as e:
+    assert not e.code, e.code
+from reazonspeech_tpu_torch.core.text import cer, normalize
+from reazonspeech_tpu_torch.oneseg.encoding import _GAIJI_TABLE
+assert normalize("abc") == "ａｂｃ" and len(_GAIJI_TABLE) == 449, len(_GAIJI_TABLE)
+print("loaded:" + ",".join(sorted(
+    m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib"))
+    or m == "reazonspeech_tpu" or m.startswith("reazonspeech_tpu."))))
+"""
+
+
+def test_v1_cli_runs_without_jax():
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run([sys.executable, "-c", _V1_HELP], env=env, cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert "python -m reazonspeech_tpu_torch.v1.cli" in out.stdout
+    leaked = out.stdout.strip().splitlines()[-1]
+    assert leaked == "loaded:", f"loaded by the v1 CLI: {leaked}"

@@ -18,8 +18,8 @@ import numpy as np
 import pytest
 import torch
 
-from reazonspeech_tpu.decoding.transducer_maes import MAESBeamConfig
 from reazonspeech_tpu.serving import continuous as jax_continuous
+from reazonspeech_tpu_torch.decoding.transducer_maes import MAESBeamConfig
 from reazonspeech_tpu_torch.espnet.asr.model import encode_ctc
 from reazonspeech_tpu_torch.espnet.asr.model import load_model_container as load_espnet
 from reazonspeech_tpu_torch.k2.asr.model import load_model_container as load_k2
@@ -334,11 +334,14 @@ def test_fault_fails_requests_held_by_the_tick(models, monkeypatch, where):
 
 
 def test_refusals(models):
-    """MAES and mesh= name their ROADMAP items; other decode configs and
-    overlong utterances are refused; a closed pool has drained."""
+    """mesh= names its ROADMAP item; other decode configs and overlong
+    utterances are refused; a closed pool has drained. An mAES container
+    is served (its adapter; its answers are held in
+    tests/test_torch_maes.py)."""
     espnet = models["espnet"]
-    with pytest.raises(TypeError, match="queue 1 item 4"):
-        ContinuousBatcher(replace(espnet, decode_cfg=MAESBeamConfig(beam_size=4)))
+    pool = ContinuousBatcher(replace(espnet, decode_cfg=MAESBeamConfig(beam_size=4)), n_lanes=1)
+    assert type(pool._ad).__name__ == "_MAESAdapter"
+    pool.close()
     with pytest.raises(NotImplementedError, match="queue 1 item 10"):
         ContinuousBatcher(espnet, mesh=object())
     with pytest.raises(TypeError, match="decode_cfg"):
