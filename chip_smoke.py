@@ -155,7 +155,29 @@ Phases, each of which fails the run (nonzero exit, no result line):
    transcribe_batch of 4 x 30 s (tokens against window 1's, or a bf16
    near-tie of window 1's decision; loop iterations, wall). Each path's
    kernels must have launched;
-11. the kernels' JSON line (each kernel's time, its plain twin's, the bound
+11. avsr (after the converted paths; no kernel of the 13 lies on this path):
+   AVHubertForConditionalGeneration.init() with no device (CUDA, TF32 off)
+   at the published AV-HuBERT base width (AVHubertConfig(): 12 encoder
+   layers of 768, 12 heads, FFN 3,072; 6 decoder layers of 768, 4 heads;
+   vocab 8,000; random weights from seed 0): generate on 16 audio-visual
+   utterances of 4 s (inputs staged on the card) with beam 5 and greedy at
+   max_length 128, each warmed once, then timed (wall and audio-s/s, host ms
+   and device launches per decode step, device busy ms of the ResNet3D, the
+   rest of the encoder and the decode loop by torch.profiler, and the device
+   ms of the beam's cache reorder and of the cross-attention K/V projections
+   a step); on a 1 x 1 s input, the encoder against the port on the CPU on
+   the same weights (relative L2 <= 1e-4) and greedy and beam-5 tokens at
+   max_length 8 against the CPU's (equal, or the first differing step's two
+   candidates within 1e-4 in fp32), again with EOS's embedding row made to
+   rank (1.5 x the row of the token greedy emits most) so that the banking
+   pool runs; the converted path: write_avhubert_hf_dir at the full width,
+   from_pretrained(dir) on the card, the tree's layout against init's, and
+   tokens equal to the same weights loaded as a native tree; then
+   make_avsr_app (max_batch 16) under 12 concurrent x-npz requests of 2-6 s
+   (audio-visual, audio-only, video-only) and one WAV request: every answer
+   200 and equal to the request's dedicated generate, or an fp32 near-tie
+   under 1e-4; wall, audio-s/s, batch shapes, p50/p95 latency;
+12. the kernels' JSON line (each kernel's time, its plain twin's, the bound
    of its work on this card, the launches on its path, and the time of one
    PyTorch call computing the same function where there is one), then the
    last line {"ok": true, "device": {"platform": "gpu", "kind": ...,
@@ -3310,6 +3332,478 @@ def decode_options_phase(name):
     log(f"decode_options phase: {time.perf_counter() - t_phase:.1f} s")
 
 
+# --- phase 11: the AVSR family (AV-HuBERT base) --------------------------------
+
+AVSR_FPS = 25  # fused feature frames a second (4 stacked 100 Hz fbank frames)
+AVSR_MAX_LENGTH = 128
+AVSR_BATCH, AVSR_SECONDS = 16, 4.0  # the batch generate's utterances
+
+
+def avsr_request(rng, seconds, audio=True, video=True):
+    """One utterance's model inputs from a numpy seed: stacked fbank features
+    [T, 104] and normalized mouth ROIs [T, 88, 88], T = 25 a second."""
+    t = int(seconds * AVSR_FPS)
+    a = rng.standard_normal((t, 104)).astype(np.float32) if audio else None
+    v = rng.standard_normal((t, 88, 88)).astype(np.float32) if video else None
+    return a, v
+
+
+def avsr_alone(model, a, v, beams, max_length=AVSR_MAX_LENGTH):
+    """The request alone (batch 1 at its own length, a missing modality
+    zero-filled as the AVSR batcher fills it): its tokens, trimmed at the
+    first EOS, and the padded arrays."""
+    t = len(a) if a is not None else len(v)
+    audio = np.zeros((1, t, model.config.audio_feat_dim), np.float32)
+    video = np.zeros((1, t, 88, 88), np.float32)
+    if a is not None:
+        audio[0] = a
+    if v is not None:
+        video[0] = v
+    toks = model.generate(audio=audio, video=video, lengths=np.array([t]), num_beams=beams,
+                          max_length=max_length)[0].cpu().numpy()
+    hits = np.nonzero(toks == model.config.eos_token_id)[0]
+    return toks[: int(hits[0]) if hits.size else len(toks)].tolist(), (audio, video, [t])
+
+
+@contextlib.contextmanager
+def avsr_recorded(trace):
+    """Append to ``trace``, on the host, each cached decoder step's logits
+    (what greedy picks from) and each beam step's top-2k values and indices
+    (what the beam search picks from)."""
+    from reazonspeech_tpu_torch.avsr import model as am
+
+    def steps(step):
+        def recording(self, *args):
+            logits = step(self, *args)
+            trace.append(("logits", logits.float().cpu()))
+            return logits
+        return recording
+
+    def tops(top):
+        def recording(cand, n):
+            vals, idx = top(cand, n)
+            trace.append(("top", vals.cpu(), idx.cpu()))
+            return vals, idx
+        return recording
+
+    with swapped(am._Decoder, "step", steps), swapped(am, "_top_candidates", tops):
+        yield trace
+
+
+def avsr_first_divergence(rec_a, rec_b, row_a, row_b):
+    """(step, fp32 gap) at the first decode step where row ``row_a`` of one
+    recorded search and row ``row_b`` of the other pick differently: greedy,
+    the gap between the two picks' logits in the first run; beam, the gap
+    between the two runs' values at the first rank whose candidate differs.
+    None where every step agrees."""
+    kind = "top" if any(r[0] == "top" for r in rec_a) else "logits"
+    rec_a = [r for r in rec_a if r[0] == kind]
+    rec_b = [r for r in rec_b if r[0] == kind]
+    for i, (a, b) in enumerate(zip(rec_a, rec_b)):
+        if kind == "logits":
+            la, lb = a[1][row_a], b[1][row_b]
+            pa, pb = int(la.argmax()), int(lb.argmax())
+            if pa != pb:
+                return i, abs(float(la[pa]) - float(la[pb]))
+        else:
+            diff = (a[2][row_a] != b[2][row_b]).nonzero()
+            if len(diff):
+                j = int(diff[0, 0])
+                return i, abs(float(a[1][row_a, j]) - float(b[1][row_b, j]))
+    return None
+
+
+def same_avsr(what, got, want, rerun_a, rerun_b, row_a=0, row_b=0, tol=1e-4):
+    """Token lists ``got`` and ``want`` must be equal; where they differ,
+    both runs are repeated recording their searches (``got`` is row
+    ``row_a`` of the first, ``want`` row ``row_b`` of the second) and the
+    first differing step's two candidates must lie within ``tol`` in fp32 (a
+    near-tie that two summation orders break differently). True where equal."""
+    if got == want:
+        return True
+    rec_a, rec_b = [], []
+    with avsr_recorded(rec_a):
+        rerun_a()
+    with avsr_recorded(rec_b):
+        rerun_b()
+    div = avsr_first_divergence(rec_a, rec_b, row_a, row_b)
+    check(div is not None, f"{what}: the tokens differ but no recorded step does")
+    step, gap = div
+    log(f"{what}: tokens differ; first differing step {step}: fp32 gap {gap:.3g} between the "
+        f"two candidates (tol {tol:g})")
+    check(gap < tol, f"{what}: the tokens differ beyond a near-tie (gap {gap})")
+    return False
+
+
+def kernel_profile(fn, tries=3):
+    """(device busy ms, device launches, the largest items) of one fn()
+    call, already warmed: torch.profiler with the CUDA activity alone (a
+    decode loop issues ~80,000 kernels, whose CPU-side events would take the
+    profiler minutes), taken again up to ``tries`` times where it records no
+    kernel, then device_items' CPU and CUDA profile."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(tries):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        items = [(e.key, e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
+                 if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+        if items:
+            break
+    else:
+        items = device_items(fn, 1)
+    check(items, "the profiler recorded no device kernel")
+    return (sum(ms for _, ms, _ in items), sum(c for _, _, c in items),
+            sorted(items, key=lambda x: -x[1])[:4])
+
+
+def avsr_batch_phase(model, name):
+    """Beam 5 and greedy generate on B=16 utterances of 4 s, audio-visual, at
+    max_length 128 (inputs staged on the card): wall and audio-s/s, wall and
+    device ms per decode step, device launches per step, the device split
+    into the ResNet3D, the rest of the encoder and the decode loop, and the
+    device ms of the beam's cache reorder and of the cross-attention K/V
+    projections, which every step recomputes."""
+    import torch
+
+    from reazonspeech_tpu_torch.avsr import model as am
+    from reazonspeech_tpu_torch.avsr.resnet3d import resnet3d_apply
+    from reazonspeech_tpu_torch.models.layers import dense
+
+    cfg = model.config
+    b, seconds = AVSR_BATCH, AVSR_SECONDS
+    t = int(seconds * AVSR_FPS)
+    rng = np.random.default_rng(150)
+    a = torch.from_numpy(rng.standard_normal((b, t, 104)).astype(np.float32)).to(model.device)
+    v = torch.from_numpy(rng.standard_normal((b, t, 88, 88)).astype(np.float32)).to(model.device)
+    with torch.inference_mode():
+        enc, mask = model.encoder(a, v)
+        resnet = kernel_profile(lambda: resnet3d_apply(model.params["video_resnet"], v))[0]
+        encoder = kernel_profile(lambda: model.encoder(a, v))[0]
+        enc_wall = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            model.encoder(a, v)
+            torch.cuda.synchronize()
+            enc_wall.append(time.perf_counter() - t0)
+        enc_wall = sorted(enc_wall)[1]
+        check(tuple(enc.shape) == (b, t, cfg.hidden_size) and bool(torch.isfinite(enc).all()),
+              f"avsr encoder: shape {tuple(enc.shape)} or non-finite values")
+        log(f"avsr encoder on {name}: B={b} x {seconds:g} s (T={t}), {resnet:.3f} device ms in "
+            f"the ResNet3D, {encoder - resnet:.3f} in the rest of the encoder, "
+            f"{1e3 * enc_wall:.2f} wall ms")
+        for beams in (5, 1):
+            label = "beam 5" if beams > 1 else "greedy"
+            steps = []
+            with swapped(am._Decoder, "step",
+                         lambda step: lambda self, *args: steps.append(1) or step(self, *args)):
+                model.generate(a, v, num_beams=beams, max_length=AVSR_MAX_LENGTH)  # warm
+                torch.cuda.synchronize()
+                steps.clear()
+                t0 = time.perf_counter()
+                toks = model.generate(a, v, num_beams=beams, max_length=AVSR_MAX_LENGTH)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            n = len(steps)
+            check(tuple(toks.shape) == (b, AVSR_MAX_LENGTH)
+                  and bool(((toks >= 0) & (toks < cfg.vocab_size)).all()),
+                  f"avsr {label}: tokens of shape {tuple(toks.shape)} or out of the vocabulary")
+            if beams > 1:
+                loop = lambda: am.beam_generate(model.params, cfg, enc, mask, 5,  # noqa: E731
+                                                AVSR_MAX_LENGTH)
+            else:
+                loop = lambda: am.greedy_generate(model.params, cfg, enc, mask,  # noqa: E731
+                                                  AVSR_MAX_LENGTH)
+            busy, launches, top = kernel_profile(loop)
+            loop_s = wall - enc_wall
+            log(f"avsr generate {label} on {name}: B={b} x {seconds:g} s, max_length "
+                f"{AVSR_MAX_LENGTH}, {n} decode steps: wall {wall:.3f} s "
+                f"({b * seconds / wall:.2f} audio-s/s), the decode loop {loop_s:.3f} s "
+                f"= {1e3 * loop_s / n:.2f} host ms a step (the loop's wall over its steps); "
+                f"device busy {busy:.3f} ms in the loop ({busy / n:.3f} a step, "
+                f"{100 * busy / 1e3 / loop_s:.1f} % of its wall), {launches / n:.1f} device "
+                f"launches a step; largest: " + "; ".join(f"{k[:48]} {ms:.3f} ms x{c:.0f}"
+                                                          for k, ms, c in top))
+
+        # the two pieces of the beam step the JAX package's semantics keep
+        layers = am._layers(model.params["dec_layers"])
+        enc_x = enc.repeat_interleave(5, dim=0)
+        kc = torch.zeros((len(layers), b * 5, AVSR_MAX_LENGTH, cfg.decoder_hidden_size),
+                         device=model.device)
+        vc = torch.zeros_like(kc)
+        gflat = torch.randint(0, b * 5, (b * 5,), device=model.device)
+
+        def reorder():
+            return kc.index_select(1, gflat), vc.index_select(1, gflat)
+
+        def cross():
+            return [(dense(lp["cross_attn"]["k"], enc_x), dense(lp["cross_attn"]["v"], enc_x))
+                    for lp in layers]
+
+        reorder()
+        cross()
+        reorder_ms = kernel_profile(lambda: [reorder() for _ in range(10)])[0] / 10
+        cross_ms = kernel_profile(lambda: [cross() for _ in range(10)])[0] / 10
+        log(f"avsr beam step pieces on {name}: the cache reorder (2 x [{len(layers)}, {b * 5}, "
+            f"{AVSR_MAX_LENGTH}, {cfg.decoder_hidden_size}] fp32 gathers) "
+            f"{reorder_ms:.4f} device ms a step; the cross-attention K/V projections of the "
+            f"encoder output ({len(layers)} layers x 2 of [{b * 5}, {t}, {cfg.hidden_size}] "
+            f"x [{cfg.hidden_size}, {cfg.decoder_hidden_size}]) {cross_ms:.4f} device ms a step")
+
+
+def avsr_cpu_check(model, name):
+    """On a 1 x 1 s audio-visual input: the encoder against the port on the
+    CPU on the same weights (relative L2 <= 1e-4, fp32 without TF32), and
+    greedy and beam-5 tokens at max_length 8 against the CPU's (equal, or
+    the first differing step's candidates within 1e-4); again with EOS's row
+    of the tied embedding 1.5 x that of the token greedy emits most, so that
+    EOS ranks and the beam's banking pool runs. Returns the short input."""
+    import torch
+
+    from reazonspeech_tpu_torch.avsr import AVHubertForConditionalGeneration
+    from reazonspeech_tpu_torch.avsr import model as am
+
+    cfg = model.config
+    a, v = avsr_request(np.random.default_rng(151), 1.0)
+    short = (a[None], v[None])
+    cpu = AVHubertForConditionalGeneration(config=cfg,
+                                           params=am._tree_to_device(model.params, "cpu"))
+    got, _ = model.encoder(*short)
+    want, _ = cpu.encoder(*short)
+    err = float(torch.linalg.norm(got.cpu().double() - want.double())
+                / torch.linalg.norm(want.double()))
+    log(f"avsr encoder on {name} against the CPU (1 x 1 s, T=25): relative L2 {err:.3g}")
+    check(err <= 1e-4, f"avsr encoder: relative L2 {err} against the CPU")
+
+    greedy = model.generate(*short, num_beams=1, max_length=8)[0].tolist()
+    twin = max(set(greedy), key=greedy.count)
+    scaled = dict(model.params, embed_tokens={"table": model.params["embed_tokens"]["table"]
+                                              .clone()})
+    scaled["embed_tokens"]["table"][cfg.eos_token_id] = \
+        scaled["embed_tokens"]["table"][twin] * 1.5
+    for label, gpu_model in (("random weights", model),
+                             (f"EOS = 1.5 x token {twin}",
+                              AVHubertForConditionalGeneration(config=cfg, params=scaled))):
+        cpu_model = AVHubertForConditionalGeneration(
+            config=cfg, params=am._tree_to_device(gpu_model.params, "cpu"))
+        for beams in (1, 5):
+            run_gpu = lambda: gpu_model.generate(*short, num_beams=beams,  # noqa: E731
+                                                 max_length=8)[0].tolist()
+            run_cpu = lambda: cpu_model.generate(*short, num_beams=beams,  # noqa: E731
+                                                 max_length=8)[0].tolist()
+            rec = []
+            with avsr_recorded(rec):
+                got = run_gpu()
+            eos_ranked = sum(int((r[2][:, :beams] % cfg.vocab_size == cfg.eos_token_id).any())
+                             for r in rec if r[0] == "top")
+            same = same_avsr(f"avsr {label} beams={beams}: card vs CPU", got, run_cpu(),
+                             run_gpu, run_cpu)
+            log(f"avsr {label}, beams={beams}, max_length 8 on {name}: tokens {got} "
+                f"{'equal to' if same else 'a near-tie from'} the CPU's"
+                + (f"; EOS among the top {beams} in {eos_ranked} of 8 steps" if beams > 1
+                   else ""))
+    return short
+
+
+def avsr_converted(model, short, name):
+    """write_avhubert_hf_dir (tests/fixture_checkpoints.py: a config.json
+    and pytorch_model.bin of the published naming) at the full width, then
+    from_pretrained(dir) on the card: the tree's keys, shapes and dtypes
+    against init's (less the training-only ctc_head, which the converter
+    does not map), and greedy and beam-5 tokens on the short input equal to
+    those of the same weights saved and loaded as a native tree."""
+    import dataclasses
+    import os
+    import shutil
+    import tempfile
+
+    from reazonspeech_tpu_torch.avsr import AVHubertForConditionalGeneration
+    from reazonspeech_tpu_torch.convert import hf_avhubert
+    from reazonspeech_tpu_torch.convert.store import save_param_tree
+
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests"))
+    import fixture_checkpoints as fx
+
+    base = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(base, exist_ok=True)
+    root = tempfile.mkdtemp(prefix="avsr_hf_", dir=base)
+    seconds = {}
+    try:
+        t0 = time.perf_counter()
+        fx.write_avhubert_hf_dir(os.path.join(root, "hf"), model.config)
+        seconds["fixture write"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        with swapped(hf_avhubert, "convert_avhubert_checkpoint",
+                     timing(seconds, "conversion (read, map, save)")):
+            conv = AVHubertForConditionalGeneration.from_pretrained(os.path.join(root, "hf"))
+        seconds["from_pretrained"] = time.perf_counter() - t0
+        check(conv.device == model.device, f"avsr converted: loaded on {conv.device}")
+        check(conv.config == model.config, "avsr converted: the config differs from init's")
+        same_tree_layout("avsr converted", conv.params,
+                         {k: p for k, p in model.params.items() if k != "ctc_head"})
+        tree = os.path.join(root, "tree")
+        save_param_tree(tree, conv.params, {"flavor": "avhubert",
+                                            "cfg": dataclasses.asdict(conv.config)})
+        t0 = time.perf_counter()
+        native = AVHubertForConditionalGeneration.from_pretrained(tree)
+        seconds["native tree load"] = time.perf_counter() - t0
+        for beams in (1, 5):
+            got = conv.generate(*short, num_beams=beams, max_length=8)
+            want = native.generate(*short, num_beams=beams, max_length=8)
+            check(bool((got == want).all()),
+                  f"avsr converted beams={beams}: tokens differ from the native tree's")
+        log(f"avsr converted path on {name}: greedy and beam-5 tokens equal to the native "
+            f"tree's; " + ", ".join(f"{k} {v:.3f} s" for k, v in seconds.items()))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def _wav_bytes(x):
+    import io
+    import wave
+
+    buf = io.BytesIO()
+    with wave.open(buf, "wb") as w:
+        w.setnchannels(1)
+        w.setsampwidth(2)
+        w.setframerate(SR)
+        w.writeframes((np.clip(x, -1, 1) * 32767).astype(np.int16).tobytes())
+    return buf.getvalue()
+
+
+def avsr_serving(model, name):
+    """make_avsr_app (max_batch 16) on a ThreadingHTTPServer at 127.0.0.1:
+    12 concurrent x-npz requests of 2-6 s (audio-visual, audio-only and
+    video-only in turn) and one WAV request of 3 s (audio-only, features
+    extracted by the server). Every answer must be 200 and equal the
+    request's dedicated generate (alone, at its own length), or else differ
+    at an fp32 near-tie under 1e-4 from the same request in the batch the
+    server ran. Logs wall, audio-s/s, the batch shapes and p50/p95 latency."""
+    import http.client
+    import io
+    import threading
+    from http.server import ThreadingHTTPServer
+
+    from reazonspeech_tpu_torch.avsr.feature_extraction import AVHubertFeatureExtractor
+    from reazonspeech_tpu_torch.serving import http as port_http
+
+    handler, batcher = port_http.make_avsr_app(model, max_batch=16)
+    ticks = []  # the host batches the executor ran
+
+    def keep(generate):
+        def recording(audio, video, lens):
+            ticks.append((audio, video, lens))
+            return generate(audio, video, lens)
+        return recording
+
+    batcher._generate = keep(batcher._generate)
+    server = ThreadingHTTPServer(("127.0.0.1", 0), handler)
+    port = server.server_address[1]
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    rng = np.random.default_rng(152)
+    reqs = []
+    for i in range(12):
+        mods = [(True, True), (True, False), (False, True)][i % 3]
+        reqs.append(avsr_request(rng, float(rng.uniform(2.0, 6.0)), *mods))
+    wav = speech_like(3.0, 153)
+    wav_body = _wav_bytes(wav)
+    feats = AVHubertFeatureExtractor()._extract_audio(
+        port_http._decode_audio_body(wav_body, "audio/wav"))
+    bodies = []
+    for a, v in reqs:
+        buf = io.BytesIO()
+        np.savez(buf, **{k: x for k, x in (("audio", a), ("video", v)) if x is not None})
+        bodies.append((buf.getvalue(), "application/x-npz"))
+    bodies.append((wav_body, "audio/wav"))
+    reqs.append((feats, None))
+
+    def post(body, ctype):
+        t0 = time.perf_counter()
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+        conn.request("POST", "/transcribe", body=body, headers={"Content-Type": ctype})
+        resp = conn.getresponse()
+        data = resp.read()
+        conn.close()
+        return resp.status, data, time.perf_counter() - t0
+
+    try:
+        t0 = time.perf_counter()
+        answers = concurrently([lambda b=b, c=c: post(b, c) for b, c in bodies])
+        wall = time.perf_counter() - t0
+    finally:
+        server.shutdown()
+        server.server_close()
+        batcher.close()
+    bad = [(i, s, d[:200]) for i, (s, d, _) in enumerate(answers) if s != 200]
+    check(not bad, f"avsr serving: answers other than 200: {bad}")
+    audio_s = sum(len(a if a is not None else v) for a, v in reqs) / AVSR_FPS
+    near = 0
+    for i, ((a, v), (_, data, _)) in enumerate(zip(reqs, answers)):
+        got = json.loads(data)["token_ids"]
+        want, (audio, video, lens) = avsr_alone(model, a, v, 5)
+        t = lens[0]
+        # the tick that served the request, and its row there
+        tick, row = next((tk, r) for tk in ticks for r in range(len(tk[2]))
+                         if tk[2][r] == t and np.array_equal(tk[0][r, :t], audio[0])
+                         and np.array_equal(tk[1][r, :t], video[0]))
+
+        def served(tick=tick):
+            model.generate(tick[0], tick[1], lengths=tick[2], num_beams=5,
+                           max_length=AVSR_MAX_LENGTH)
+
+        def dedicated(audio=audio, video=video, lens=lens):
+            model.generate(audio, video, lengths=np.array(lens), num_beams=5,
+                           max_length=AVSR_MAX_LENGTH)
+
+        near += not same_avsr(f"avsr serving request {i}", got, want, served, dedicated,
+                              row_a=row)
+    lat = sorted(t for _, _, t in answers)
+    log(f"avsr serving on {name}: {len(reqs)} requests ({audio_s:.1f} audio-s; 12 npz of 2-6 s, "
+        f"1 WAV of 3 s) in {wall:.3f} s ({audio_s / wall:.2f} audio-s/s), batch shapes "
+        f"{batcher.batch_shapes}, latency p50 {lat[len(lat) // 2]:.3f} s, p95 "
+        f"{lat[min(len(lat) - 1, int(0.95 * len(lat)))]:.3f} s; {len(reqs) - near} answers "
+        f"equal to their dedicated generate, {near} at an fp32 near-tie")
+
+
+def avsr_phase(name):
+    """Phase 11: the AVSR family at the published AV-HuBERT base width
+    (AVHubertConfig(): 12 encoder layers of 768, 6 decoder layers, vocab
+    8,000; random weights from seed 0) on the card: batch generate, the
+    check against the CPU, the converted path and the HTTP front."""
+    import gc
+
+    import torch
+
+    from reazonspeech_tpu_torch.avsr import AVHubertConfig, AVHubertForConditionalGeneration
+
+    t_phase = time.perf_counter()
+    cfg = AVHubertConfig()
+    model = AVHubertForConditionalGeneration.init(torch.Generator().manual_seed(0), cfg)
+    check(model.device.type == "cuda", f"avsr: init() loaded on {model.device}")
+    check(not torch.backends.cuda.matmul.allow_tf32 and not torch.backends.cudnn.allow_tf32,
+          "avsr: TF32 is on after init()")
+    log(f"avsr: AVHubertConfig() (encoder {cfg.num_hidden_layers} x {cfg.hidden_size}, "
+        f"{cfg.num_attention_heads} heads, FFN {cfg.intermediate_size}; decoder "
+        f"{cfg.decoder_layers} x {cfg.decoder_hidden_size}, {cfg.decoder_attention_heads} heads; "
+        f"vocab {cfg.vocab_size}) on {name}, init {time.perf_counter() - t_phase:.1f} s")
+    avsr_batch_phase(model, name)
+    short = avsr_cpu_check(model, name)
+    avsr_converted(model, short, name)
+    gc.collect()
+    torch.cuda.empty_cache()
+    avsr_serving(model, name)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"avsr phase: {time.perf_counter() - t_phase:.1f} s")
+
+
 def main():
     import torch
 
@@ -3345,6 +3839,7 @@ def main():
     serving_phase(f"{smi}")
     decode_options_phase(f"{smi}")
     converted_paths(f"{smi}")
+    avsr_phase(f"{smi}")
     for row in rows:
         row["launches"] = counts[row["name"]]
     print(json.dumps({"kernels": rows}), flush=True)

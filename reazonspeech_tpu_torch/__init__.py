@@ -5,7 +5,7 @@ and never ``jax``; it mirrors the reference's layout so every module has a
 counterpart of the same name, and it reads the same native param trees
 (``convert/store.py``).
 
-Ported so far: the nemo-v2, k2 and espnet serving paths —
+Ported so far: the nemo-v2, k2 and espnet serving paths and AVSR —
 
     frontend/features.py        log-mel (nemo and kaldi presets)
     models/fastconformer.py     FastConformer encoder (nemo-v2)
@@ -17,8 +17,12 @@ Ported so far: the nemo-v2, k2 and espnet serving paths —
     decoding/rnnt_greedy.py     label-looping greedy decode
     decoding/ctc.py             CTC blank scan and Viterbi alignment (espnet)
     nemo/asr/, k2/asr/, espnet/asr/  load_model / transcribe / transcribe_batch / cli
+    avsr/                       AV-HuBERT (ResNet3D + transformer encoder, cached
+                                greedy / beam generate), plain PyTorch in fp32
+    serving/                    the micro-batchers, the continuous executor, HTTP
     convert/                    the checkpoint converters (.nemo, espnet zoo,
-                                icefall + sherpa-onnx), the int8 writer, the store
+                                icefall + sherpa-onnx, HF AV-HuBERT), the int8
+                                writer, the store
     core/                       copies of the JAX package's jax-free core
 
 with hand-written Hopper kernels under ``csrc/`` (rel-pos attention, the

@@ -1,9 +1,10 @@
 """Where the port's entry points run: the card unless the caller asks for
 the CPU, and the fp32 matmul policy they set on it."""
 
+import numpy as np
 import torch
 
-__all__ = ["param_device", "resolve_device", "set_fp32_matmul_policy"]
+__all__ = ["host_to_device", "param_device", "resolve_device", "set_fp32_matmul_policy"]
 
 
 def resolve_device(device):
@@ -30,3 +31,13 @@ def param_device(params):
     while isinstance(params, (dict, list, tuple)):
         params = next(iter(params.values() if isinstance(params, dict) else params))
     return params.device
+
+
+def host_to_device(array, device):
+    """A host array as a tensor on ``device``: a copy (the caller may change
+    its array), on CUDA through a fresh pinned buffer that is never written
+    after the asynchronous copy is issued."""
+    t = torch.from_numpy(np.array(array))
+    if torch.device(device).type != "cuda":
+        return t
+    return t.pin_memory().to(device, non_blocking=True)

@@ -70,6 +70,7 @@ from ..decoding.transducer_graves import (
 from ..decoding.transducer_maes import (
     MAESBeamConfig, maes_beam_segment, maes_finalize, maes_state_init,
 )
+from ..device import host_to_device
 from ..frontend.features import log_mel_spectrogram, num_frames
 from ..models.fastconformer import encoder_output_length, fastconformer_encode
 from ..models.rnnt import joint_precompute_enc
@@ -333,14 +334,6 @@ class ContinuousBatcher:
         self._ring = torch.zeros((self.n_lanes, self.t_buf, self.model.rnnt_cfg.joint_hidden),
                                  dtype=torch.float32, device=self.device)
 
-    def _to_device(self, array):
-        """A host array on the card through a fresh pinned buffer (never
-        written after the asynchronous copy is issued)."""
-        t = torch.from_numpy(np.array(array))  # a copy: the caller may change its array
-        if self.device.type != "cuda":
-            return t
-        return t.pin_memory().to(self.device, non_blocking=True)
-
     # -- public API ---------------------------------------------------------
 
     def submit(self, waveform) -> Future:
@@ -563,10 +556,12 @@ class ContinuousBatcher:
             buf[i, :len(w)] = w
             lens[i] = len(w)
         mdl = self.model
-        proj = _proj_from_wav(mdl.params, self._to_device(buf), self._to_device(lens),
+        proj = _proj_from_wav(mdl.params, host_to_device(buf, self.device),
+                              host_to_device(lens, self.device),
                               mdl.fe_cfg, mdl.enc_cfg, mdl.rnnt_cfg, self.t_buf, self._ad.mvn)
         # the pad rows are dropped here; each real row covers all t_buf frames
-        self._ring.index_copy_(0, self._to_device(np.asarray(lanes, np.int64)), proj[:m])
+        self._ring.index_copy_(0, host_to_device(np.asarray(lanes, np.int64), self.device),
+                               proj[:m])
         self.encode_ticks += 1
         for (w, fut), lane in zip(items, lanes):
             n = self.host_frames(len(w))
@@ -608,7 +603,8 @@ class ContinuousBatcher:
                         if self._lane_fut[lane] is not None and self._lane_done(lane)]
             fin = None
             if finished:
-                outs = self._ad.finalize_call(self._state, self._to_device(self._lane_len))
+                outs = self._ad.finalize_call(self._state,
+                                              host_to_device(self._lane_len, self.device))
                 fin = (_ToHost(outs), [(lane, self._lane_fut[lane]) for lane in finished])
                 held += [fut for _, fut in fin[1]]
                 for lane in finished:
@@ -637,8 +633,8 @@ class ContinuousBatcher:
                 busy = self._bound - self._fidx
                 t0 = time.perf_counter()
                 self._state, done_dev = self._ad.segment_call(
-                    self.model.params, self._ring, self._to_device(self._lane_len),
-                    self._to_device(reset), self._state, self.n_frames, int(busy.max()))
+                    self.model.params, self._ring, host_to_device(self._lane_len, self.device),
+                    host_to_device(reset, self.device), self._state, self.n_frames, int(busy.max()))
                 self.segment_host_s += time.perf_counter() - t0
                 self._fidx = np.minimum(self._fidx + self.n_frames, self._bound)
                 self.segments += 1

@@ -1,7 +1,6 @@
 """Minimal HTTP front for the serving executors (stdlib only).
 
-The port of ``reazonspeech_tpu/serving/http.py`` (its AVSR front waits for
-the AVSR flavor, ROADMAP.md queue 1 item 7).
+The port of ``reazonspeech_tpu/serving/http.py``.
 
 POST /transcribe with a WAV body (or raw float32 PCM16k with
 Content-Type: application/octet-stream) returns JSON:
@@ -16,6 +15,10 @@ lane pool's ``--max-pending`` backlog bound is hit, requests are shed with
 GET /metrics the same in Prometheus text. One process serves one card;
 scale-out is one process per card behind any load balancer.
 
+``--flavor avsr`` serves the seq2seq AVSR family through its own static
+micro-batcher (:func:`make_avsr_app`); the transducer-only continuous
+executor does not apply there.
+
 Run: ``python -m reazonspeech_tpu_torch.serving.http --flavor nemo``
 (the model loads on the GPU; without one it raises).
 """
@@ -29,7 +32,7 @@ import numpy as np
 
 from .batcher import MicroBatcher
 
-__all__ = ["serve", "make_app", "main"]
+__all__ = ["serve", "make_app", "make_avsr_app", "main"]
 
 
 def _load_flavor(flavor, checkpoint=None, decoding=None):
@@ -49,8 +52,19 @@ def _load_flavor(flavor, checkpoint=None, decoding=None):
 
         return load_model(checkpoint=checkpoint, decoding=decoding)
     if flavor == "avsr":
-        raise NotImplementedError("the avsr flavor is not ported yet (ROADMAP.md, queue 1 "
-                                  "item 7)")
+        if decoding is not None:
+            raise ValueError("decoding strategy does not apply to the avsr "
+                             "flavor (seq2seq generate; beam width is a "
+                             "generate-time argument)")
+        import torch
+
+        from ..avsr.configuration_avhubert import AVHubertConfig
+        from ..avsr.model import AVHubertForConditionalGeneration
+
+        if checkpoint in (None, "random"):
+            return AVHubertForConditionalGeneration.init(
+                torch.Generator().manual_seed(0), AVHubertConfig())
+        return AVHubertForConditionalGeneration.from_pretrained(checkpoint)
     raise ValueError(f"unknown flavor: {flavor}")
 
 
@@ -224,6 +238,87 @@ def make_app(model, seconds_per_frame=0.08, executor="micro", **batcher_kw):
     return Handler, batcher
 
 
+def make_avsr_app(model, tokenizer=None, **batcher_kw):
+    """HTTP handler over the AVSR micro-batcher (:mod:`.avsr`).
+
+    The AVSR flavor serves through its OWN static micro-batcher: seq2seq
+    beam generate carries no per-frame survivor state, so it does not fit
+    the transducer lane-recycling model the continuous executor is built on
+    (the loop it batches is the reference's per-utterance ``generate``,
+    pkg/avsr/src/avhubert/modeling_avhubert.py:330-391).
+
+    POST /transcribe body formats:
+      - WAV or raw float32 PCM16k (``application/octet-stream``):
+        audio-only AVSR — log-fbank 26×4 features extracted server-side;
+      - ``application/x-npz``: ``np.savez`` archive with ``audio``
+        ([T, 104] stacked features) and/or ``video`` ([T, 88, 88]
+        normalized mouth ROIs) — pre-extracted, since mouth-ROI cropping
+        needs client-side landmarks.
+
+    Returns ``{"token_ids": [...], "text": "..."}`` (text only when a
+    tokenizer is available).
+    """
+    import io
+
+    from ..avsr.feature_extraction import AVHubertFeatureExtractor
+    from .avsr import AVSRBatcher
+
+    fe = AVHubertFeatureExtractor()
+    batcher = AVSRBatcher(model, **batcher_kw)
+
+    class Handler(BaseHTTPRequestHandler):
+        def log_message(self, *args):  # quiet by default
+            pass
+
+        def _send(self, code, payload):
+            body = json.dumps(payload, ensure_ascii=False).encode()
+            self.send_response(code)
+            self.send_header("Content-Type", "application/json; charset=utf-8")
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
+
+        def do_GET(self):
+            stats = {"ok": True, "flavor": "avsr", "executor": "avsr-micro",
+                     "ticks": len(batcher.batch_shapes)}
+            if self.path == "/healthz":
+                self._send(200, stats)
+            elif self.path == "/metrics":  # Prometheus scrape target
+                body = _prometheus_text(stats).encode()
+                self.send_response(200)
+                self.send_header("Content-Type", "text/plain; version=0.0.4")
+                self.send_header("Content-Length", str(len(body)))
+                self.end_headers()
+                self.wfile.write(body)
+            else:
+                self._send(404, {"error": "not found"})
+
+        def do_POST(self):
+            if self.path != "/transcribe":
+                self._send(404, {"error": "not found"})
+                return
+            try:
+                n = int(self.headers.get("Content-Length", 0))
+                body = self.rfile.read(n)
+                ctype = self.headers.get("Content-Type", "")
+                audio = video = None
+                if ctype.startswith("application/x-npz"):
+                    arrs = np.load(io.BytesIO(body))
+                    audio = arrs["audio"] if "audio" in arrs else None
+                    video = arrs["video"] if "video" in arrs else None
+                else:
+                    audio = fe._extract_audio(_decode_audio_body(body, ctype))
+                tokens = batcher.submit(audio=audio, video=video).result(timeout=600)
+                payload = {"token_ids": list(map(int, tokens))}
+                if tokenizer is not None:
+                    payload["text"] = tokenizer.decode(tokens, skip_special_tokens=True)
+                self._send(200, payload)
+            except Exception as e:
+                self._send(500, {"error": str(e)})
+
+    return Handler, batcher
+
+
 def _serve_until_shutdown(handler, batcher, host, port):
     """Run the server with a graceful-drain lifecycle: SIGTERM/SIGINT stop
     accepting, in-flight and queued requests complete (both batchers drain
@@ -302,8 +397,11 @@ def main(argv=None):
                     help="persistent compilation cache directory (not ported yet)")
     args = ap.parse_args(argv)
 
-    if args.flavor == "avsr":
-        ap.error("--flavor avsr is not ported yet (ROADMAP.md, queue 1 item 7)")
+    if args.flavor == "avsr" and args.continuous:
+        # AVSR serves through its own static micro-batcher: seq2seq generate
+        # has no lane-recycling analogue
+        ap.error("--continuous is not supported for --flavor avsr "
+                 "(seq2seq generate has no lane-recycling analogue)")
     if args.mesh_data:
         ap.error("--mesh-data is not ported yet: the lane pool runs on one card "
                  "(ROADMAP.md, queue 1 item 10)")
@@ -311,6 +409,15 @@ def main(argv=None):
         ap.error("--compile-cache is not ported yet (ROADMAP.md, queue 1 item 3: "
                  "utils/compile_cache)")
     model = _load_flavor(args.flavor, args.checkpoint, args.decoding)
+    if args.flavor == "avsr":
+        print(f"serving avsr on {args.host}:{args.port} ({model.device})", flush=True)
+        handler, batcher = make_avsr_app(model, max_batch=args.max_batch,
+                                         max_wait_ms=args.max_wait_ms)
+        if args.warmup:
+            shapes = batcher.warmup(args.warmup)
+            print(f"warmed {len(shapes)} serving shapes: {shapes}", flush=True)
+        _serve_until_shutdown(handler, batcher, args.host, args.port)
+        return
     spf = {"nemo": 0.08, "espnet": 0.04, "k2": 0.04}[args.flavor]
     print(f"serving {args.flavor} on {args.host}:{args.port} ({model.device})", flush=True)
     if args.continuous:

@@ -45,6 +45,12 @@ PIPELINE_MODULES = ["reazonspeech_tpu_torch." + m for m in (
 CONVERT_MODULES = ["reazonspeech_tpu_torch.convert." + m
                    for m in ("torch_utils", "quantize", "onnx_reader", "nemo_fastconformer",
                              "espnet_conformer", "icefall_zipformer", "onnx_zipformer")]
+# the AVSR family, its converter and its executor
+AVSR_MODULES = ["reazonspeech_tpu_torch.avsr"] + [
+    "reazonspeech_tpu_torch.avsr." + m
+    for m in ("configuration_avhubert", "resnet3d", "model", "feature_extraction",
+              "processing")] + ["reazonspeech_tpu_torch.convert.hf_avhubert",
+                                "reazonspeech_tpu_torch.serving.avsr"]
 
 # each converter run on a published-layout fixture (its lazy imports
 # included: torch, yaml, the port's models), then the modules loaded
@@ -91,7 +97,8 @@ def test_port_imports_no_jax():
     assert int(n_modules) >= 20
     assert leaked == "", f"imported by the port: {leaked}"
     missing = sorted(set(ESPNET_MODULES + DECODE_STEP_MODULES + CONVERT_MODULES
-                         + SERVING_MODULES + PIPELINE_MODULES) - set(names.split()))
+                         + SERVING_MODULES + PIPELINE_MODULES + AVSR_MODULES)
+                     - set(names.split()))
     assert not missing, f"not imported: {missing}"
 
 
@@ -156,3 +163,41 @@ def test_v1_cli_runs_without_jax():
     assert "python -m reazonspeech_tpu_torch.v1.cli" in out.stdout
     leaked = out.stdout.strip().splitlines()[-1]
     assert leaked == "loaded:", f"loaded by the v1 CLI: {leaked}"
+
+
+# chip_smoke.py imported, its AVSR phase's imports made and the AVSR
+# converter run on a published-layout fixture: nothing of JAX or the JAX
+# package is loaded, and no import statement of the script names them
+_SMOKE = """
+import ast, sys, tempfile
+sys.path.insert(0, "tests")
+import chip_smoke
+import fixture_checkpoints as fx
+from reazonspeech_tpu_torch.avsr import AVHubertConfig, AVHubertForConditionalGeneration
+from reazonspeech_tpu_torch.avsr import model, resnet3d
+from reazonspeech_tpu_torch.serving import http
+d = tempfile.mkdtemp()
+fx.write_avhubert_hf_dir(d, AVHubertConfig.tiny(audio_feat_dim=104))
+AVHubertForConditionalGeneration.from_pretrained(d, device="cpu")
+names = []
+for node in ast.walk(ast.parse(open("chip_smoke.py").read())):
+    if isinstance(node, ast.Import):
+        names += [a.name for a in node.names]
+    elif isinstance(node, ast.ImportFrom) and node.level == 0:
+        names.append(node.module)
+bad = [n for n in names if n.split(".")[0] in ("jax", "jaxlib", "reazonspeech_tpu")]
+print("named:" + ",".join(bad))
+print("loaded:" + ",".join(sorted(
+    m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib"))
+    or m == "reazonspeech_tpu" or m.startswith("reazonspeech_tpu."))))
+"""
+
+
+def test_chip_smoke_and_avsr_load_no_jax():
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run([sys.executable, "-c", _SMOKE], env=env, cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    named, loaded = out.stdout.strip().splitlines()[-2:]
+    assert named == "named:", f"chip_smoke.py imports {named}"
+    assert loaded == "loaded:", f"loaded by chip_smoke.py and the AVSR path: {loaded}"
