@@ -77,10 +77,12 @@ Phases, each of which fails the run (nonzero exit, no result line):
    configuration (every encoder kernel, bf16, fp32 residual) with Graves
    beam 20 on the top-m kernel, the joint's blank bias raised so that the
    search ends frames by ESPnet's test as a trained model does: transcribe
-   of 45 s (windows at T=549, 549 and a short one, the find_blank passes on
-   the packed route at T=499), decode_batch of four 20 s windows padded as
-   transcribe pads them (B=4, T=549) and decode_single of 45 s (T=1149: the
-   streamed entry); the mean pops per frame and the saturated count; the
+   of 25 s (windows at T=549 and a short one, the find_blank passes on
+   the packed route at T=499), decode_batch of four 10 s windows padded as
+   transcribe pads them in a 20 s window's bucket (B=4, T=549),
+   decode_single of 10 s and the encoder of a 45 s input (T=1124: the
+   streamed entry; the windows and the single input cut from 20 s and 45 s
+   to keep the smoke in its time limit); the mean pops per frame and the saturated count; the
    encoder's device busy ms and ops; then the encoder against the plain
    twins and against the xla impls (single-pass and streamed route), Graves
    with the top-m kernel against its twin on 100 frames, the CTC Viterbi on
@@ -96,7 +98,7 @@ Phases, each of which fails the run (nonzero exit, no result line):
    without the switches; after the k2 path, load_model_container(
    decoding="beam") at ZipformerConfig.large() with joint_impl="pallas",
    transcribe_batch of 4 x 30 s; in the espnet path, decode_batch of the
-   four 20 s windows with both switches, pops per lane-frame, ms and
+   four windows cut to 5 s (the same bucket) with both switches, pops per lane-frame, ms and
    device launches per issued pop with and without them (the joint is two
    device launches a call, the top-m one). Each runs again
    with the two kernels' plain twins: the tokens must be equal, or else the
@@ -131,17 +133,18 @@ Phases, each of which fails the run (nonzero exit, no result line):
    port's converter (convert/), caches the tree and serves it (nemo
    transcribe_batch 4 x 30 s twice; k2 transcribe_batch 4 x 30 s twice
    and transcribe 60 s; espnet the CTC blank scan of a 20 s window,
-   decode_batch of four 20 s windows and decode_single 45 s). Checked: the
-   serving
+   decode_batch of four windows cut to 5 s in the 22 s bucket, decode_single
+   10 s and the encoder of a 45 s input, T=1124). Checked: the serving
    configuration at the published width, the tree's keys, shapes and dtypes
    against init, leaves against the state dict's tensors by published name
    bit for bit, every kernel of the flavor launched, the encoder against its
-   plain twins (relative L2 <= 5e-2), and a second load_model() with the
+   plain twins (relative L2 <= 5e-2; espnet's also at the 45 s input), and a
+   second load_model() with the
    hub deleted reading the cached tree without running the converter. The
    seconds of each step and the peak host RSS are logged;
 10. decode options, v1 and 1seg (after serving): espnet decoding="maes"
    (mAES beam 20 on the top-m kernel, full width, the blank +12) on the
-   espnet phase's four 20 s windows and 45 s input, its tokens and best
+   espnet phase's four 10 s windows and 45 s input, its tokens and best
    scores against the top-m twin's, launches a frame, wall beside Graves
    beam 20's, row 3 at mAES's shape (R = 80, m = 22), then mAES in the
    executor behind the HTTP front under three 2-5 s requests (answers
@@ -176,14 +179,35 @@ Phases, each of which fails the run (nonzero exit, no result line):
    make_avsr_app (max_batch 16) under 12 concurrent x-npz requests of 2-6 s
    (audio-visual, audio-only, video-only) and one WAV request: every answer
    200 and equal to the request's dedicated generate, or an fp32 near-tie
-   under 1e-4; wall, audio-s/s, batch shapes, p50/p95 latency;
-12. the kernels' JSON line (each kernel's time, its plain twin's, the bound
+   under 1e-4; wall, audio-s/s, ticks and batch shapes, p50/p95 latency;
+12. training (after avsr; all on the card, nothing at full width on the
+   CPU): nemo's recipe, FastConformerConfig.xlarge(remat=True) with
+   attn_impl and lnd_impl "pallas" and conv_impl "xla" (the conv kernel has
+   no backward), bf16 compute, fp32 residual, RNNTConfig(), random weights
+   from seed 0, B = 4 x 15 s of speech_like audio (one row 11 s) and U = 48
+   labels from a numpy seed. The six kernel-forward autograd wrappers at
+   the training shapes (rows 4-7 at T=188, rows 1 and 8 with separate
+   q/k/v, row 8 at T=549 and, past 1024, row 9 at T=1100): the forward
+   within relative L2 2e-2 of the plain forward, every input's gradient
+   within 5e-2 of the plain twin's autograd gradient. compute_loss
+   (loss="full") with the kernels against plain_twins() on the same params
+   and batch: loss within 1e-2, the flattened gradient within relative L2
+   5e-2, all finite; rows 4-7 launched in the forward and again in remat's
+   recompute. Trainer.fit of 4 steps on the batch (warmup 1 step): the loss
+   falls; ms a step, training audio-s/s, torch.cuda.max_memory_allocated.
+   One step each of loss="pruned" (s_range 5) and ctc_weight=0.3: finite.
+   At 2 blocks of the same width: a checkpoint at step 2, restore_latest
+   and 2 more steps against an uninterrupted run to 4 (losses within 1e-2,
+   the update within relative L2 1e-2; bit equality logged);
+13. the kernels' JSON line (each kernel's time, its plain twin's, the bound
    of its work on this card, the launches on its path, and the time of one
    PyTorch call computing the same function where there is one), then the
    last line {"ok": true, "device": {"platform": "gpu", "kind": ...,
    "count": ...}}.
 
-Imports no JAX. Runs in a few minutes, the build included.
+Every phase logs its seconds ("phase NAME: S s"), and the run ends with
+their table. Imports no JAX. Runs in ~12 minutes on an H100, the build
+included.
 """
 
 import contextlib
@@ -225,7 +249,7 @@ SOURCES = {
     "fused_conv_module_ln": "reazonspeech_tpu_torch/csrc/conformer_conv.cu",
     "shared_rel_attention": "reazonspeech_tpu_torch/csrc/zipformer_attention.cu",
     "shared_rel_attention_blockwise": "reazonspeech_tpu_torch/csrc/zipformer_attention.cu",
-    "relpos_attention": "reazonspeech_tpu_torch/csrc/relpos_attention.cu",
+    "relpos_attention": "reazonspeech_tpu_torch/csrc/relpos_attention_single.cu",
     "relpos_attention_blockwise": "reazonspeech_tpu_torch/csrc/relpos_attention.cu",
     "fused_conv_module_layer": "reazonspeech_tpu_torch/csrc/conformer_conv.cu",
     "fused_conv_module_ln_layer": "reazonspeech_tpu_torch/csrc/conformer_conv.cu",
@@ -243,6 +267,11 @@ ESPNET_KERNELS = ("ln_dense", "ln_dense_add", "relpos_attention_fused_packed", "
 ESPNET_XLA_KERNELS = ("relpos_attention", "fused_conv_module_layer")
 # the beam decoders' opt-in step kernels (joint_impl/lstm_impl="pallas")
 STEP_KERNELS = ("joint_topm", "lstm_cell_step")
+# the kernels behind the six training wrappers (``ops.*_diff``); rows 4-7
+# run on the training path's packed attention route
+TRAIN_WRAPPERS = ("ln_dense", "ln_dense_add", "add_ln", "relpos_attention_fused_packed",
+                  "relpos_attention_fused", "relpos_attention")
+TRAIN_KERNELS = TRAIN_WRAPPERS[:4]
 # the kernels whose JSON rows take their launches from the espnet runs
 ESPNET_ROWS = ("relpos_attention", "relpos_attention_blockwise", "fused_conv_module_ln_layer",
                "fused_conv_module_layer")
@@ -264,6 +293,20 @@ T0 = time.perf_counter()
 
 def log(msg):
     print(f"[chip_smoke {time.perf_counter() - T0:7.1f} s] {msg}", flush=True)
+
+
+PHASE_SECONDS = {}  # each phase's seconds, in the order the phases ran
+
+
+@contextlib.contextmanager
+def phase(key):
+    """Log the seconds of the block as the phase ``key`` (also on failure)."""
+    t0 = time.perf_counter()
+    try:
+        yield
+    finally:
+        PHASE_SECONDS[key] = time.perf_counter() - t0
+        log(f"phase {key}: {PHASE_SECONDS[key]:.1f} s")
 
 
 def check(cond, msg):
@@ -1096,7 +1139,9 @@ def _compare(name, kernel, plain, args, atol, iters, *, flops, kwargs=None, labe
 @contextlib.contextmanager
 def plain_twins(only=None):
     """Run the same path with every kernel wrapper's plain twin in its place
-    (or only those of the kernels named in ``only``)."""
+    (or only those of the kernels named in ``only``); the training wrappers
+    (``*_diff``) take the twin of their forward, differentiated by autograd
+    at the forward's dtypes."""
     from reazonspeech_tpu_torch import ops
     from reazonspeech_tpu_torch.decoding import rnnt_beam, transducer_maes
     from reazonspeech_tpu_torch.models import fastconformer as fc
@@ -1105,21 +1150,30 @@ def plain_twins(only=None):
         relpos_attention_blockwise_plain, relpos_attention_plain,
     )
 
+    def diff_twin(qu, qv, k, v, pos, lengths):  # relpos_attention_diff's forward, by T
+        single = qu.shape[2] <= fc._SINGLE_PASS_MAX_T
+        plain = relpos_attention_plain if single else relpos_attention_blockwise_plain
+        return plain(qu, qv, k, v, pos, lengths)
+
     plains = {"relpos_attention": relpos_attention_plain,
-              "relpos_attention_blockwise": relpos_attention_blockwise_plain}
+              "relpos_attention_blockwise": relpos_attention_blockwise_plain,
+              "relpos_attention_diff": diff_twin}
     targets = [(fc, name) for name in (
         "ln_dense", "ln_dense_add", "add_ln", "relpos_attention_fused",
         "relpos_attention_fused_packed", "fused_conv_module", "relpos_attention",
         "relpos_attention_blockwise")]
+    targets += [(fc, name + "_diff") for name in TRAIN_WRAPPERS]
     # the ALSD and Graves decoders take their step ops from rnnt_beam, mAES
     # its top-m from its own module
     targets += [(rnnt_beam, name) for name in ("topm_logsoftmax",) + STEP_KERNELS]
     targets += [(transducer_maes, "topm_logsoftmax")]
     targets += [(zf, name) for name in K2_KERNELS]
-    targets = [(mod, name) for mod, name in targets if only is None or name in only]
+    targets = [(mod, name) for mod, name in targets
+               if only is None or name.removesuffix("_diff") in only]
     saved = [(mod, name, getattr(mod, name)) for mod, name in targets]
     for mod, name in targets:
-        setattr(mod, name, plains[name] if name in plains else getattr(ops, name + "_plain"))
+        twin = plains.get(name) or getattr(ops, name.removesuffix("_diff") + "_plain")
+        setattr(mod, name, twin)
     try:
         yield
     finally:
@@ -1195,8 +1249,10 @@ def main_path(dev, name):
           f"a kernel of the lnd_impl=xla path was not launched: {earlier_counts}")
     del earlier
 
-    nemo_profile(model, batch)
-    reference_check(model)
+    with phase("nemo_profile"):
+        nemo_profile(model, batch)
+    with phase("reference_check"):
+        reference_check(model)
     return {k: (counts[k] if k in SERVING_KERNELS else earlier_counts[k])
             for k in SERVING_KERNELS + EARLIER_KERNELS}
 
@@ -1450,8 +1506,9 @@ def k2_profile(model, batch, wall_s):
     """Where the k2 4 x 30 s batch spends its time: the encoder's device
     busy ms, device ops and largest items (torch.profiler, 3 encodes), its
     CUDA-event ms (median of 5) and the greedy decode's; then the device
-    busy time of one profiled transcribe_batch, over its own wall time and
-    over ``wall_s``, the wall time of the unprofiled call."""
+    busy time of one profiled transcribe_batch (CUDA activity only), over
+    its own wall time and over ``wall_s``, the wall time of the unprofiled
+    call."""
     import statistics
 
     import torch
@@ -1498,8 +1555,10 @@ def k2_profile(model, batch, wall_s):
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
 
-    busy = device_ms(timed_call, 1)  # walls: the warm-up call, then the profiled one(s)
-    check(busy is not None, "k2: the profiler recorded no device kernel in transcribe_batch")
+    # the CUDA activity alone (kernel_profile): the greedy loop issues tens of
+    # thousands of kernels, whose CPU-side events took the profiler ~30 s
+    timed_call()  # warm-up
+    busy, _, _ = kernel_profile(timed_call)  # walls[-1]: the profiled call
     log(f"k2 transcribe_batch 4 x 30 s: {busy:.1f} ms device busy; the device is busy "
         f"{100 * busy / (walls[-1] * 1e3):.1f} % of the profiled call ({walls[-1] * 1e3:.1f} ms "
         f"wall), {100 * busy / (wall_s * 1e3):.1f} % of the unprofiled one ({wall_s * 1e3:.1f} ms)")
@@ -1605,9 +1664,9 @@ class PopCounter:
 
 def espnet_path(name):
     """The espnet flavor at espnet_encoder_config's full width and depth in
-    its GPU serving configuration, Graves beam 20: transcribe of 45 s,
-    decode_batch of four 20 s windows (B=4, T=549) and decode_single of 45 s
-    (T=1149)."""
+    its GPU serving configuration, Graves beam 20: transcribe of 25 s,
+    decode_batch of four 10 s windows in the 22 s bucket (B=4, T=549),
+    decode_single of 10 s and the encoder of a 45 s input (T=1124)."""
     from dataclasses import replace
 
     import torch
@@ -1635,7 +1694,7 @@ def espnet_path(name):
           "espnet: not Graves beam 20 on the top-m kernel")
     model.params["joint"]["out"]["b"][0] += ESPNET_BLANK_BIAS
 
-    long_form = asr.audio_from_numpy(speech_like(45.0, seed=50), SR)
+    long_form = asr.audio_from_numpy(speech_like(ESPNET_LONG_S, seed=50), SR)
     buf, lens, single = espnet_inputs()
     model.decode_single(speech_like(2.0, seed=49))  # warm-up: library handles, allocator
     torch.cuda.synchronize()
@@ -1647,22 +1706,28 @@ def espnet_path(name):
         t1 = time.perf_counter()
         batch = model.decode_batch(buf, lens)
         t2 = time.perf_counter()
-        tokens, frames = model.decode_single(single)
+        tokens, frames = model.decode_single(speech_like(ESPNET_SINGLE_S, seed=61))
         t3 = time.perf_counter()
+    with torch.inference_mode():  # the 45 s input's encoder: T=1124, the streamed entry
+        long_enc, _ = _espnet_encode(model, single[None], np.array([len(single)], np.int32))
     counts = ops.launch_counts()
     log(f"espnet path: launch counts {counts}")
     check(all(counts[k] > 0 for k in ESPNET_KERNELS),
           f"an espnet kernel was not launched: {counts}")
-    check_espnet_result(res, 45.0)
-    # 21.5 s of valid samples in the 22 s bucket: 537 valid of T=549 frames
-    check(batch[3].tolist() == [537] * 4, f"espnet decode_batch: encoder lengths {batch[3]}")
-    check(frames == sorted(frames) and all(0 <= f < 1149 for f in frames),
+    check(long_enc.shape[1] > 1024, f"espnet 45 s encoder: T={long_enc.shape[1]}")
+    check_espnet_result(res, ESPNET_LONG_S)
+    # 11.5 s of valid samples in the 22 s bucket: 287 valid of T=549 frames
+    check(batch[3].tolist() == [287] * 4, f"espnet decode_batch: encoder lengths {batch[3]}")
+    check(frames == sorted(frames) and all(0 <= f < ESPNET_SINGLE_S * 25 for f in frames),
           "espnet decode_single: emission frames out of order or range")
-    log(f"espnet transcribe 45 s: {t1 - t0:.3f} s wall, {45.0 / (t1 - t0):.2f} audio-s/s "
+    log(f"espnet transcribe {ESPNET_LONG_S:.0f} s: {t1 - t0:.3f} s wall, "
+        f"{ESPNET_LONG_S / (t1 - t0):.2f} audio-s/s "
         f"on {name}; {len(res.text)} characters, {len(res.segments)} segments")
-    log(f"espnet decode_batch 4 x 20 s windows (B=4, T=549): {t2 - t1:.3f} s wall, "
-        f"{80.0 / (t2 - t1):.2f} audio-s/s; tokens {batch[2].tolist()}")
-    log(f"espnet decode_single 45 s (T=1149): {t3 - t2:.3f} s wall, {45.0 / (t3 - t2):.2f} "
+    log(f"espnet decode_batch 4 x {ESPNET_WINDOW_S:.0f} s windows (B=4, T=549): "
+        f"{t2 - t1:.3f} s wall, {4 * ESPNET_WINDOW_S / (t2 - t1):.2f} audio-s/s; tokens "
+        f"{batch[2].tolist()}")
+    log(f"espnet decode_single {ESPNET_SINGLE_S:.0f} s: {t3 - t2:.3f} s wall, "
+        f"{ESPNET_SINGLE_S / (t3 - t2):.2f} "
         f"audio-s/s; {len(tokens)} tokens")
     ESPNET_GRAVES.update(batch_s=t2 - t1, single_s=t3 - t2, batch_tokens=batch[2].tolist(),
                          single_tokens=len(tokens))
@@ -1682,26 +1747,54 @@ def espnet_path(name):
     # decode_batch alone: the second-to-last Graves call (decode_single is the last)
     unswitched = (int(pops.ptot[-2]) / int(pops.frames[-2]),
                   (t2 - t1) * 1e3 / pops.host[-2]["pops_issued"])
-    espnet_step_phase(model, buf, lens, name, unswitched)
+    with phase("espnet_step_phase"):
+        espnet_step_phase(model, buf, lens, name, unswitched)
     out = {k: counts[k] for k in ESPNET_ROWS if k != "fused_conv_module_layer"}
-    out["fused_conv_module_layer"] = espnet_xla_config(buf[:1], lens[:1])
+    from reazonspeech_tpu_torch.espnet.asr.transcribe import PADDING
+
+    window = np.pad(speech_like(20.0, seed=51), PADDING)  # 21.5 s: T=549 > 512
+    out["fused_conv_module_layer"] = espnet_xla_config(window)
     return out
 
 
 ESPNET_GRAVES = {}  # the espnet phase's Graves beam 20 figures, beside which mAES is logged
+# the espnet transcribe's input: a 20 s window and a short one (cut from 45 s,
+# three windows, to keep the smoke inside its time limit: Graves beam 20 runs
+# ~1.4 ms a pop, ~25 pops a frame)
+ESPNET_LONG_S = 25.0
+# the valid seconds of each window of the Graves and mAES decode_batch, in a
+# 20 s window's 22 s bucket (cut from 20 s), and the Graves decode_single's
+# input (cut from 45 s; the encoder still runs the 45 s input, for row 9)
+ESPNET_WINDOW_S, ESPNET_SINGLE_S = 10.0, 10.0
+# the valid seconds of each window in the decodes cut further (the step
+# kernels' decode_batch, the converted path's): the same 22 s bucket
+# (B=4, T=549), 162 valid frames
+ESPNET_CUT_S = 5.0
 
 
 def espnet_inputs():
-    """The espnet phase's inputs: four 20 s windows padded as transcribe pads
-    them in the 22 s bucket (B=4, T=549; 537 valid frames each), their
-    lengths, and a 45 s input (T=1149)."""
+    """The espnet phase's inputs: four windows of ESPNET_WINDOW_S seconds
+    padded as transcribe pads them, in the 22 s bucket of a 20 s window
+    (B=4, T=549; 287 valid frames each), their lengths, and a 45 s input
+    (T=1149)."""
     from reazonspeech_tpu_torch.espnet.asr.transcribe import PADDING
 
-    window = int(21.5 * SR)
+    window = int(ESPNET_WINDOW_S * SR) + sum(PADDING)
     buf = np.zeros((4, 22 * SR), np.float32)
     for i in range(4):
-        buf[i, :window] = np.pad(speech_like(20.0, seed=51 + i), PADDING)
+        buf[i, :window] = np.pad(speech_like(ESPNET_WINDOW_S, seed=51 + i), PADDING)
     return buf, np.full(4, window, np.int32), speech_like(45.0, seed=60)
+
+
+def cut_windows(buf, lens):
+    """The 20 s windows of ``buf`` cut to their first ESPNET_CUT_S seconds
+    (padded as transcribe pads them) in the same bucket: (buf, lens)."""
+    from reazonspeech_tpu_torch.espnet.asr.transcribe import PADDING
+
+    keep = PADDING[0] + int(ESPNET_CUT_S * SR)
+    out = np.zeros_like(buf)
+    out[:, :keep] = buf[:, :keep]
+    return out, np.minimum(lens, keep + PADDING[1]).astype(np.int32)
 
 
 def _espnet_encode(model, wav, lens, enc_cfg=None):
@@ -1793,12 +1886,12 @@ def espnet_reference_check(model, buf, lens, single):
     log(f"CTC Viterbi of 60 tokens over {lpz_log.shape[0]} frames: the card's path == the CPU's")
 
 
-def espnet_xla_config(buf, lens):
+def espnet_xla_config(window):
     """The espnet lnd_impl="xla" configuration at full width and 4 blocks
     (the attention and conv kernels, caller-side LayerNorms) through
-    ctc_probs of one padded 20 s window (the 22 s bucket, T=549): the
-    [B, H, T, dh] route and the layer-norm conv module's caller-LN variant.
-    Returns the latter's launches."""
+    ctc_probs of ``window``, one padded 20 s window (the 22 s bucket, T=549):
+    the [B, H, T, dh] route and the layer-norm conv module's caller-LN
+    variant. Returns the latter's launches."""
     import torch
 
     from reazonspeech_tpu_torch import ops
@@ -1810,7 +1903,7 @@ def espnet_xla_config(buf, lens):
         compute_dtype="bfloat16", residual_dtype="float32"))
     ops.reset_launch_counts()
     t0 = time.perf_counter()
-    lpz = model.ctc_probs(buf[0, :int(lens[0])])
+    lpz = model.ctc_probs(window)
     torch.cuda.synchronize()
     counts = ops.launch_counts()
     log(f"espnet lnd_impl=xla, 4 blocks: launch counts {counts}; ctc_probs of one 20 s "
@@ -2065,12 +2158,13 @@ def nemo_step_path(name):
 
 def espnet_step_phase(model, buf, lens, name, unswitched):
     """espnet Graves beam 20 with both step kernels (pred_hidden 256 passes
-    the LSTM kernel's guard) on the four 20 s windows (B=4, T=549, the
-    +12 blank bias kept): decode_batch with the kernels and with their
-    plain twins (tokens equal under the near-tie rule), pops per lane-frame
-    and ms per issued pop beside ``unswitched`` (the same figures of the
-    serving configuration's decode_batch), and device launches per issued
-    pop with and without the switches."""
+    the LSTM kernel's guard) on the four windows cut to their first 5 s in
+    the same 22 s bucket (B=4, T=549, 162 valid frames; the +12 blank bias
+    kept): decode_batch with the kernels and with their plain twins (tokens
+    equal under the near-tie rule), pops per lane-frame and ms per issued
+    pop beside ``unswitched`` (the same figures of the serving
+    configuration's decode_batch of the whole windows), and device launches
+    per issued pop with and without the switches."""
     from dataclasses import replace
 
     import torch
@@ -2080,6 +2174,7 @@ def espnet_step_phase(model, buf, lens, name, unswitched):
 
     cfg = replace(model.decode_cfg, joint_impl="pallas", lstm_impl="pallas")
     switched = replace(model, decode_cfg=cfg)
+    buf, lens = cut_windows(buf, lens)
     ops.reset_launch_counts()
     with PopCounter(espnet_model) as pops:
         t0 = time.perf_counter()
@@ -2091,8 +2186,8 @@ def espnet_step_phase(model, buf, lens, name, unswitched):
     check(counts["topm_logsoftmax"] == 0, "espnet: the top-m kernel ran beside joint_topm")
     stats = pops.summary()
     issued = stats["issued_per_frame"] * stats["frames"]
-    log(f"espnet decode_batch 4 x 20 s windows with the step kernels: {wall:.3f} s wall, "
-        f"{80.0 / wall:.2f} audio-s/s on {name}; {stats['pops_per_lane_frame']:.2f} pops per "
+    log(f"espnet decode_batch 4 x {ESPNET_CUT_S:.0f} s windows with the step kernels: "
+        f"{wall:.3f} s wall, {4 * ESPNET_CUT_S / wall:.2f} audio-s/s on {name}; {stats['pops_per_lane_frame']:.2f} pops per "
         f"lane-frame, {wall * 1e3 / issued:.3f} ms per issued pop; serving configuration "
         f"(topk_impl=pallas only): {unswitched[0]:.2f} pops per lane-frame, "
         f"{unswitched[1]:.3f} ms per issued pop; tokens {got[2].tolist()}")
@@ -2105,7 +2200,8 @@ def espnet_step_phase(model, buf, lens, name, unswitched):
             f"{time.perf_counter() - t0:.3f} s wall")
         return out
 
-    same_decode("espnet Graves beam 20, 4 x 20 s windows", got, rerun(True), rerun, "graves")
+    same_decode(f"espnet Graves beam 20, 4 x {ESPNET_CUT_S:.0f} s windows", got, rerun(True),
+                rerun, "graves")
     with torch.inference_mode():
         enc, el = _espnet_encode(model, buf, lens)
         for label, c in (("topk_impl=pallas only (the serving default)", model.decode_cfg),
@@ -2286,15 +2382,16 @@ def same_leaves(what, pairs):
         + "; ".join(label for label, _, _ in pairs))
 
 
-def converted_encoder_check(what, model, encode):
-    """A 5 s and a 3 s input through the encoder with the kernels and with
-    their plain twins, on the converted weights (relative L2 <= 5e-2 on the
-    valid frames, as reference_check)."""
+def converted_encoder_check(what, model, encode, wav=None, lens=None):
+    """A 5 s and a 3 s input (or ``wav`` with ``lens``) through the encoder
+    with the kernels and with their plain twins, on the converted weights
+    (relative L2 <= 5e-2 on the valid frames, as reference_check)."""
     import torch
 
-    wav = np.stack([speech_like(5.0, seed=70), speech_like(5.0, seed=71)])
-    wav[1, 3 * SR:] = 0.0
-    lens = np.array([5 * SR, 3 * SR], np.int32)
+    if wav is None:
+        wav = np.stack([speech_like(5.0, seed=70), speech_like(5.0, seed=71)])
+        wav[1, 3 * SR:] = 0.0
+        lens = np.array([5 * SR, 3 * SR], np.int32)
     with torch.inference_mode():
         enc, el = encode(wav, lens)
         with plain_twins():
@@ -2302,8 +2399,8 @@ def converted_encoder_check(what, model, encode):
     check(bool(torch.isfinite(enc).all()), f"{what}: non-finite encoder output")
     valid = (torch.arange(enc.shape[1], device=enc.device)[None, :] < el[:, None])[..., None]
     rel = ((enc.float() - ref.float()) * valid).norm().item() / (ref.float() * valid).norm().item()
-    log(f"{what} encoder on the converted weights, kernels vs plain twins: relative L2 "
-        f"{rel:.3g} (tol 5e-2)")
+    log(f"{what} encoder on the converted weights (B={wav.shape[0]}, T={enc.shape[1]}), kernels "
+        f"vs plain twins: relative L2 {rel:.3g} (tol 5e-2)")
     check(rel <= 5e-2, f"{what} encoder relative error {rel}")
 
 
@@ -2428,6 +2525,7 @@ def converted_nemo(root):
 
 def converted_espnet(root):
     import fixture_checkpoints as fx
+    import torch
 
     from reazonspeech_tpu_torch import ops
     from reazonspeech_tpu_torch.convert import espnet_conformer
@@ -2505,10 +2603,13 @@ def converted_espnet(root):
     buf = np.zeros((4, 22 * SR), np.float32)
     for i in range(4):
         buf[i, :window] = np.pad(speech_like(20.0, seed=91 + i), PADDING)
-    lens = np.full(4, window, np.int32)
+    buf, lens = cut_windows(buf, np.full(4, window, np.int32))
+    long_wav = speech_like(45.0, seed=95)
     # the CTC blank scan that transcribe runs on each 20 s window (T=499:
-    # the packed route), then Graves beam 20 at T=549 and T=1149, the
-    # phase's longest calls (~21 pops a lane-frame, ~1.5 ms a pop)
+    # the packed route), then Graves beam 20 at T=549 on the windows cut to
+    # 5 s and on a 10 s input (cut from 20 s windows and 45 s: Graves beam
+    # 20 runs ~1.5 ms a pop, ~21 pops a lane-frame), and the encoder of a
+    # 45 s input (T=1124: the streamed entry, held to its twins below)
     ops.reset_launch_counts()
     with PopCounter(espnet_model) as pops:
         t0 = time.perf_counter()
@@ -2516,17 +2617,20 @@ def converted_espnet(root):
         t1 = time.perf_counter()
         batch = model.decode_batch(buf, lens)
         t2 = time.perf_counter()
-        tokens_1, frames_1 = model.decode_single(speech_like(45.0, seed=95))
+        tokens_1, frames_1 = model.decode_single(speech_like(10.0, seed=95))
         t3 = time.perf_counter()
+    with torch.inference_mode():
+        long_enc, _ = _espnet_encode(model, long_wav[None], np.array([len(long_wav)], np.int32))
     counts = ops.launch_counts()
     seconds.update({"find_blank 20 s": t1 - t0, "decode_batch": t2 - t1,
-                    "decode_single 45 s": t3 - t2})
+                    "decode_single 10 s": t3 - t2})
     log(f"espnet converted path: launch counts {counts}")
     check(all(counts[k] > 0 for k in ESPNET_KERNELS),
           f"espnet converted path: a kernel was not launched: {counts}")
+    check(long_enc.shape[1] > 1024, f"espnet 45 s encoder: T={long_enc.shape[1]}")
     check(0 <= blank[0] <= blank[1] <= 20 * SR, f"espnet find_blank: {blank}")
-    check(batch[3].tolist() == [537] * 4, f"espnet decode_batch: encoder lengths {batch[3]}")
-    check(frames_1 == sorted(frames_1) and all(0 <= f < 1149 for f in frames_1),
+    check(batch[3].tolist() == [162] * 4, f"espnet decode_batch: encoder lengths {batch[3]}")
+    check(frames_1 == sorted(frames_1) and all(0 <= f < 250 for f in frames_1),
           "espnet decode_single: emission frames out of order or range")
     stats = pops.summary()
     log(f"espnet converted path: decode_batch tokens {batch[2].tolist()}, decode_single "
@@ -2534,6 +2638,8 @@ def converted_espnet(root):
         f"{stats['pops_per_lane_frame']:.2f} pops per lane-frame, saturated lanes "
         f"{stats['saturated_lanes']}")
     converted_encoder_check("espnet", model, lambda wav, lens: _espnet_encode(model, wav, lens))
+    converted_encoder_check("espnet", model, lambda wav, lens: _espnet_encode(model, wav, lens),
+                            wav=long_wav[None], lens=np.array([len(long_wav)], np.int32))
     return seconds
 
 
@@ -2959,8 +3065,9 @@ def maes_frame_launches(model, enc, el, frames=4):
 
 def maes_phase(name, rand):
     """espnet decoding="maes" (beam 20 on the top-m kernel) at full width,
-    the blank logit +12: decode_batch of the espnet phase's four 20 s
-    windows and decode_single of its 45 s input, the tokens against the
+    the blank logit +12: decode_batch of the espnet phase's four 10 s
+    windows (the 22 s bucket) and decode_single of its 45 s input, the tokens
+    against the
     top-m twin's (or an fp32 near-tie), beside Graves beam 20 on the same
     inputs; row 3 at mAES's shape (R = 4 lanes x beam 20, m = 22); then the
     executor over it behind the HTTP front. Returns the model."""
@@ -2989,7 +3096,7 @@ def maes_phase(name, rand):
     counts = ops.launch_counts()
     log(f"mAES path: launch counts {counts}")
     check(all(counts[k] > 0 for k in MAES_KERNELS), f"an mAES path kernel was not launched: {counts}")
-    check(batch[3].tolist() == [537] * 4, f"mAES decode_batch: encoder lengths {batch[3]}")
+    check(batch[3].tolist() == [287] * 4, f"mAES decode_batch: encoder lengths {batch[3]}")
     for out in (batch, one):
         for i in range(out[0].shape[0]):
             fr = out[1][i, :int(out[2][i])].tolist()
@@ -3006,25 +3113,28 @@ def maes_phase(name, rand):
         with plain_twins(("topm_logsoftmax",)):
             want_s = maes_beam_decode(pp, jp, enc, el, model.rnnt_cfg, model.decode_cfg)[3]
     rel = ((got_s - want_s).abs() / want_s.abs()).max().item()
-    log(f"mAES best scores, 4 x 20 s windows, top-m kernel vs twin: {got_s.tolist()} "
+    log(f"mAES best scores, 4 x {ESPNET_WINDOW_S:.0f} s windows, top-m kernel vs twin: "
+        f"{got_s.tolist()} "
         f"against {want_s.tolist()}, relative difference {rel:.3g} (tol 1e-5)")
     check(rel <= 1e-5, f"mAES: best scores differ from the twin's by {rel} relative")
     g = ESPNET_GRAVES  # empty where the espnet phase did not run (the phase alone)
     graves = (lambda key, audio: f"{g[key]:.3f} s, {audio / g[key]:.2f} audio-s/s"
               if key in g else "not measured in this run")
-    log(f"mAES beam 20 decode_batch 4 x 20 s windows (B=4, T=549): {t1 - t0:.3f} s wall, "
-        f"{80.0 / (t1 - t0):.2f} audio-s/s, tokens {batch[2].tolist()}; Graves beam 20 on the "
-        f"same windows (espnet phase): {graves('batch_s', 80.0)}, tokens "
+    audio = 4 * ESPNET_WINDOW_S
+    log(f"mAES beam 20 decode_batch 4 x {ESPNET_WINDOW_S:.0f} s windows (B=4, T=549): "
+        f"{t1 - t0:.3f} s wall, {audio / (t1 - t0):.2f} audio-s/s, tokens {batch[2].tolist()}; "
+        f"Graves beam 20 on the same windows (espnet phase): {graves('batch_s', audio)}, tokens "
         f"{g.get('batch_tokens')}; on {name}")
     log(f"mAES beam 20 decode_single 45 s (T=1149): {t2 - t1:.3f} s wall, "
-        f"{45.0 / (t2 - t1):.2f} audio-s/s, {int(one[2][0])} tokens; Graves beam 20: "
-        f"{graves('single_s', 45.0)}, {g.get('single_tokens')} tokens")
+        f"{45.0 / (t2 - t1):.2f} audio-s/s, {int(one[2][0])} tokens; Graves beam 20 on a "
+        f"{ESPNET_SINGLE_S:.0f} s input (espnet phase): {graves('single_s', ESPNET_SINGLE_S)}, "
+        f"{g.get('single_tokens')} tokens")
     log(f"mAES: {frames_run} frame bodies in the two calls, {per_frame:.1f} device launches "
         f"a frame (B=4, a 4-frame decode with its set-up), row-3 launches "
         f"{counts['topm_logsoftmax']} ({counts['topm_logsoftmax'] / frames_run:.2f} a frame); "
         f"host {(t2 - t0) * 1e3 / frames_run:.3f} ms a frame")
 
-    for what, wav, wlens, got in (("4 x 20 s windows", buf, lens, batch),
+    for what, wav, wlens, got in ((f"4 x {ESPNET_WINDOW_S:.0f} s windows", buf, lens, batch),
                                   ("45 s", sbuf, slens, one)):
         def rerun(twins, wav=wav, wlens=wlens):
             with plain_twins(("topm_logsoftmax",)) if twins else contextlib.nullcontext():
@@ -3765,8 +3875,8 @@ def avsr_serving(model, name):
                               row_a=row)
     lat = sorted(t for _, _, t in answers)
     log(f"avsr serving on {name}: {len(reqs)} requests ({audio_s:.1f} audio-s; 12 npz of 2-6 s, "
-        f"1 WAV of 3 s) in {wall:.3f} s ({audio_s / wall:.2f} audio-s/s), batch shapes "
-        f"{batcher.batch_shapes}, latency p50 {lat[len(lat) // 2]:.3f} s, p95 "
+        f"1 WAV of 3 s) in {wall:.3f} s ({audio_s / wall:.2f} audio-s/s), {batcher.ticks} "
+        f"ticks of batch shapes {sorted(batcher.batch_shapes)}, latency p50 {lat[len(lat) // 2]:.3f} s, p95 "
         f"{lat[min(len(lat) - 1, int(0.95 * len(lat)))]:.3f} s; {len(reqs) - near} answers "
         f"equal to their dedicated generate, {near} at an fp32 near-tie")
 
@@ -3804,6 +3914,342 @@ def avsr_phase(name):
     log(f"avsr phase: {time.perf_counter() - t_phase:.1f} s")
 
 
+# --- the training path --------------------------------------------------------
+
+# nemo's recipe (tools/tpu_train_bench.py's defaults): B = 4 x 15 s, U = 48
+TRAIN_B, TRAIN_SECONDS, TRAIN_U = 4, 15.0, 48
+
+
+def rel_l2(got, want):
+    return ((got.float() - want.float()).norm() / want.float().norm().clamp_min(1e-30)).item()
+
+
+def train_configs(enc_cfg=None, rnnt_cfg=None):
+    """The training configuration: FastConformerConfig.xlarge(remat=True) in
+    the kernel configuration that autograd can take (attn and lnd "pallas",
+    conv "xla", bf16 compute, fp32 residual) and RNNTConfig() at its width."""
+    from reazonspeech_tpu_torch.models.fastconformer import FastConformerConfig
+    from reazonspeech_tpu_torch.models.rnnt import RNNTConfig
+
+    if enc_cfg is None:
+        enc_cfg = FastConformerConfig.xlarge(
+            remat=True, attn_impl="pallas", lnd_impl="pallas", conv_impl="xla",
+            compute_dtype="bfloat16", residual_dtype="float32")
+    return enc_cfg, rnnt_cfg or RNNTConfig(enc_dim=enc_cfg.d_model)
+
+
+def train_params(seed, enc_cfg, rnnt_cfg, dev):
+    """init_params (from a seed, on ``dev``) with the simple joint of the
+    pruned loss and a CTC head (blank 0, rnnt_cfg.num_classes tokens)."""
+    import torch
+
+    from reazonspeech_tpu_torch.models.conformer import init_ctc_head
+    from reazonspeech_tpu_torch.nemo.asr.model import init_params
+    from reazonspeech_tpu_torch.training import init_simple_joint
+
+    params = init_params(seed, enc_cfg, rnnt_cfg, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(seed + 1)
+    params["simple_joint"] = init_simple_joint(gen, rnnt_cfg, device=dev)
+    params["ctc"] = init_ctc_head(gen, enc_cfg.d_model, rnnt_cfg.num_classes, device=dev)
+    return params
+
+
+def train_batch(rnnt_cfg, seconds=TRAIN_SECONDS, b=TRAIN_B, u=TRAIN_U):
+    """B utterances of speech_like audio and U labels from a numpy seed (in
+    1 .. vocab-1: CTC's blank is 0); row 2 is shorter (11/15 of the
+    seconds, 3/4 of the labels), so padding is exercised."""
+    n = int(seconds * SR)
+    wav = np.zeros((b, n), np.float32)
+    lengths = np.full(b, n, np.int32)
+    label_lengths = np.full(b, u, np.int32)
+    lengths[2], label_lengths[2] = n * 11 // 15, u * 3 // 4
+    for i in range(b):
+        wav[i, :lengths[i]] = speech_like(lengths[i] / SR, seed=400 + i)
+    labels = np.random.default_rng(401).integers(1, rnnt_cfg.vocab_size, (b, u)).astype(np.int32)
+    for i in range(b):
+        labels[i, label_lengths[i]:] = 0
+    return {"waveform": wav, "lengths": lengths, "labels": labels,
+            "label_lengths": label_lengths}
+
+
+def train_wrapper_checks(enc_cfg, dev, t_fused):
+    """Each of the six training wrappers at the training shapes: the kernel
+    forward against the plain forward (relative L2 <= 2e-2), and the
+    gradient of every differentiable input through the wrapper against the
+    plain twin's autograd gradient (relative L2 <= 5e-2 at bf16). Rows 1 and
+    8 take separate q/k/v at T=``t_fused``, row 8 also at T=549 (past the
+    fused cap) and T=1100 (past the single-pass cap: the streamed kernel,
+    row 9)."""
+    import torch
+
+    from reazonspeech_tpu_torch import ops
+    from reazonspeech_tpu_torch.ops import relpos_attention as ra
+
+    lnd = sys.modules["reazonspeech_tpu_torch.ops.ln_dense"]
+    gen = torch.Generator(device=dev).manual_seed(500)
+    bf16, f32 = torch.bfloat16, torch.float32
+    d, h = enc_cfg.d_model, enc_cfg.num_heads
+    dh, dff = d // h, d * enc_cfg.ff_expansion
+
+    def rnd(*shape, dtype=f32, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=dev) * scale).to(dtype)
+
+    def lens(b, t):
+        return torch.tensor([t, t - t // 5, t, t // 2][:b], dtype=torch.int32, device=dev)
+
+    b, t = TRAIN_B, t_fused
+    ln_g, ln_b = 1.0 + rnd(d, scale=0.1), rnd(d, scale=0.1)
+    qkv_w = [rnd(d, d, dtype=bf16, scale=d ** -0.5) for _ in range(3)]
+    qkv_c = [rnd(d, scale=0.1) for _ in range(3)]
+    cases = [  # (wrapper's kernel, wrapper, twin, args, kwargs, label)
+        ("ln_dense", lnd.ln_dense_diff, ops.ln_dense_plain,
+         (rnd(b, t, d, scale=2.0), ln_g, ln_b, rnd(d, dff, dtype=bf16, scale=d ** -0.5),
+          rnd(dff, scale=0.1)), dict(activation="swish"), f"FFN-in, T={t}"),
+        ("ln_dense_add", lambda r, dl, g, bb, *wc: lnd.ln_dense_add_diff(
+            r, dl, g, bb, wc[:3], wc[3:], scale=0.5),
+         lambda r, dl, g, bb, *wc: ops.ln_dense_add_plain(r, dl, g, bb, wc[:3], wc[3:], 0.5),
+         (rnd(b, t, d, scale=2.0), rnd(b, t, d, dtype=bf16), ln_g, ln_b, *qkv_w, *qkv_c), {},
+         f"q/k/v, T={t}"),
+        ("add_ln", lnd.add_ln_diff, ops.add_ln_plain,
+         (rnd(b, t, d, scale=2.0), rnd(b, t, d, dtype=bf16), lens(b, t), ln_g, ln_b),
+         dict(scale=0.5), f"T={t}"),
+        ("relpos_attention_fused_packed", ra.relpos_attention_fused_packed_diff,
+         ra.relpos_attention_fused_packed_plain,
+         (rnd(b, t, 3 * d, dtype=bf16), rnd(2 * t - 1, h, dh, dtype=bf16), rnd(h, dh, scale=0.1),
+          rnd(h, dh, scale=0.1), lens(b, t), h), {}, f"T={t}"),
+        ("relpos_attention_fused", ra.relpos_attention_fused_diff, ra.relpos_attention_fused_plain,
+         (rnd(b, t, d, dtype=bf16), rnd(b, t, d, dtype=bf16), rnd(b, t, d, dtype=bf16),
+          rnd(2 * t - 1, h, dh, dtype=bf16), rnd(h, dh, scale=0.1), rnd(h, dh, scale=0.1),
+          lens(b, t), h), {}, f"separate q/k/v, T={t}"),
+    ]
+    for bb, tt, kernel, plain in (
+            (2, 549, "relpos_attention", ra.relpos_attention_plain),
+            (1, 1100, "relpos_attention_blockwise", ra.relpos_attention_blockwise_plain)):
+        cases.append((kernel, ra.relpos_attention_diff, plain,
+                      tuple(rnd(bb, h, tt, dh, dtype=bf16) for _ in range(4))
+                      + (rnd(2 * tt - 1, h, dh, dtype=bf16), lens(bb, tt)), {},
+                      f"[B, H, T, dh], B={bb}, T={tt}"))
+    rng = np.random.default_rng(501)
+    for name, wrapper, plain, args, kw, label in cases:
+        diff = [i for i, a in enumerate(args)
+                if isinstance(a, torch.Tensor) and a.is_floating_point()]
+        grads = {}
+        outs = {}
+        for which, fn in (("kernel", wrapper), ("plain", plain)):
+            leaves = [a.detach().clone().requires_grad_(i in diff)
+                      if isinstance(a, torch.Tensor) else a for i, a in enumerate(args)]
+            ops.reset_launch_counts()
+            out = fn(*leaves, **kw)
+            out = out if isinstance(out, tuple) else (out,)
+            if which == "kernel":
+                check(ops.launch_counts()[name] > 0, f"{name} ({label}): the kernel did not launch")
+                weights = [torch.from_numpy(rng.standard_normal(tuple(o.shape)).astype(np.float32))
+                           .to(dev) for o in out]
+            loss = sum((o.float() * w).sum() for o, w in zip(out, weights))
+            grads[which] = torch.autograd.grad(loss, [leaves[i] for i in diff])
+            outs[which] = out
+        fwd = max(rel_l2(g, w) for g, w in zip(outs["kernel"], outs["plain"]))
+        grad = max(rel_l2(g, w) for g, w in zip(grads["kernel"], grads["plain"]))
+        finite = all(bool(torch.isfinite(g.float()).all()) for g in grads["kernel"])
+        what = f"the training wrapper over {name} ({label})"
+        log(f"{what}: forward relative L2 {fwd:.3g} (tol 2e-2), gradients of {len(diff)} inputs, "
+            f"largest relative L2 {grad:.3g} (tol 5e-2)")
+        check(finite, f"{what}: non-finite gradients")
+        check(fwd <= 2e-2, f"{what}: forward relative L2 {fwd}")
+        check(grad <= 5e-2, f"{what}: gradient relative L2 {grad}")
+
+
+def train_grads(params, batch, fe_cfg, enc_cfg, rnnt_cfg, dev):
+    """(loss, flat gradients, launches in the forward, launches in the
+    backward) of compute_loss(loss="full") on trainable copies of params."""
+    import torch
+
+    from reazonspeech_tpu_torch import ops
+    from reazonspeech_tpu_torch.training.train_step import compute_loss, tree_leaves, tree_map
+
+    p = tree_map(lambda x: x.detach().requires_grad_(True), params)
+    leaves = tree_leaves(p)
+    tb = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+    ops.reset_launch_counts()
+    loss = compute_loss(p, tb, fe_cfg, enc_cfg, rnnt_cfg)
+    torch.cuda.synchronize()
+    fwd = ops.launch_counts()
+    ops.reset_launch_counts()
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    torch.cuda.synchronize()
+    bwd = ops.launch_counts()
+    flat = torch.cat([(torch.zeros_like(x) if g is None else g).float().reshape(-1)
+                      for x, g in zip(leaves, grads)])
+    return loss.detach(), flat, fwd, bwd
+
+
+def training_phase(name, dev="cuda", enc_cfg=None, rnnt_cfg=None, seconds=TRAIN_SECONDS,
+                   t_fused=None):
+    """The port's training at the full nemo width and depth (24 blocks,
+    d=1024, remat), all on the card: the six wrappers at the training
+    shapes against their twins; compute_loss(loss="full") with the kernels
+    (rows 4-7 launched in the forward and again in remat's recompute)
+    against the same with plain_twins() on the same params and batch (loss
+    within 1e-2, gradients within relative L2 5e-2, all finite); Trainer.fit
+    of 4 steps on one batch (the loss falls; ms a step, audio-s/s, peak
+    memory); one step each of loss="pruned" and ctc_weight=0.3 (finite); a
+    checkpoint at step 2 and a resume to step 4 at 2 blocks of the same
+    width, against the uninterrupted run."""
+    import gc
+    import os
+    import shutil
+    import statistics
+    import tempfile
+    from dataclasses import replace
+
+    import torch
+
+    from reazonspeech_tpu_torch.frontend.features import nemo_frontend_config
+    from reazonspeech_tpu_torch.training import Trainer, TrainerConfig, make_train_step
+    from reazonspeech_tpu_torch.training.train_step import tree_leaves
+
+    full = enc_cfg is None
+    enc_cfg, rnnt_cfg = train_configs(enc_cfg, rnnt_cfg)
+    if full:
+        check((enc_cfg.num_layers, enc_cfg.d_model, enc_cfg.num_heads, enc_cfg.conv_kernel,
+               rnnt_cfg.vocab_size, rnnt_cfg.pred_hidden, rnnt_cfg.joint_hidden)
+              == (24, 1024, 8, 9, 3000, 640, 640), "training: not the nemo xlarge width")
+    fe_cfg = nemo_frontend_config()
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    params = train_params(0, enc_cfg, rnnt_cfg, dev)
+    n_params = sum(x.numel() for x in tree_leaves(params))
+    batch = train_batch(rnnt_cfg, seconds)
+    audio_s = batch["lengths"].sum() / SR
+    log(f"training: {enc_cfg.num_layers} blocks, d={enc_cfg.d_model}, remat={enc_cfg.remat}, "
+        f"attn/lnd/conv={enc_cfg.attn_impl}/{enc_cfg.lnd_impl}/{enc_cfg.conv_impl}, "
+        f"{enc_cfg.compute_dtype}/{enc_cfg.residual_dtype}; {n_params / 1e6:.1f}M params; "
+        f"batch {TRAIN_B} x {seconds:.0f} s, U={TRAIN_U} (audio {batch['lengths'].tolist()} "
+        f"samples, labels {batch['label_lengths'].tolist()}); init "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    # the six wrappers at the training shapes (T of a 15 s row: 188 frames)
+    t_fused = t_fused or int(seconds * 100) // 8 + 1
+    train_wrapper_checks(enc_cfg, dev, t_fused)
+
+    # the whole loss and its gradients, the kernels against their twins
+    t0 = time.perf_counter()
+    loss_k, g_k, fwd, bwd = train_grads(params, batch, fe_cfg, enc_cfg, rnnt_cfg, dev)
+    t1 = time.perf_counter()
+    with plain_twins():
+        loss_p, g_p, fwd_p, _ = train_grads(params, batch, fe_cfg, enc_cfg, rnnt_cfg, dev)
+    t2 = time.perf_counter()
+    log(f"training step launches: forward {({k: fwd[k] for k in TRAIN_KERNELS})}, backward "
+        f"(remat's recompute) {({k: bwd[k] for k in TRAIN_KERNELS})}; with the twins "
+        f"{sum(fwd_p.values())} launches")
+    check(all(fwd[k] > 0 for k in TRAIN_KERNELS), f"training forward: a kernel not launched {fwd}")
+    check(all(bwd[k] > 0 for k in TRAIN_KERNELS) or not enc_cfg.remat,
+          f"training backward: remat's recompute launched no kernel of rows 4-7: {bwd}")
+    check(sum(fwd_p.values()) == 0, f"training with the twins launched kernels: {fwd_p}")
+    dl = abs(loss_k.item() - loss_p.item()) / abs(loss_p.item())
+    dg = rel_l2(g_k, g_p)
+    log(f"training loss with the kernels {loss_k.item():.5f}, with the twins {loss_p.item():.5f}"
+        f" (relative {dl:.3g}, tol 1e-2); gradients of {g_k.numel()} values, relative L2 "
+        f"{dg:.3g} (tol 5e-2); loss+grad {t1 - t0:.2f} s with the kernels, {t2 - t1:.2f} s "
+        f"with the twins (first calls)")
+    check(bool(torch.isfinite(loss_k)) and bool(torch.isfinite(g_k).all()),
+          "training: a non-finite loss or gradient")
+    check(dl <= 1e-2, f"training loss: kernels vs twins relative {dl}")
+    check(dg <= 5e-2, f"training gradients: kernels vs twins relative L2 {dg}")
+    del g_k, g_p
+    gc.collect()
+
+    # Trainer.fit: 4 steps on one repeated batch
+    torch.cuda.reset_peak_memory_stats()
+    cfg = TrainerConfig(warmup_steps=1, decay_steps=100, peak_lr=1e-4, log_every=1)
+    trainer = Trainer(fe_cfg, enc_cfg, rnnt_cfg, cfg, device=dev).init(params)
+    walls = []
+
+    def timed(batches):
+        for b in batches:
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter())
+            yield b
+
+    hist = trainer.fit(timed([batch] * 5), max_steps=4)
+    torch.cuda.synchronize()
+    walls.append(time.perf_counter())
+    steps_s = np.diff(walls)[:4]
+    losses = [r["loss"] for r in hist]
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30 if dev == "cuda" else float("nan")
+    step_ms = statistics.median(steps_s[1:]) * 1e3
+    log(f"training Trainer.fit on {name}: losses {[round(x, 4) for x in losses]}, grad norms "
+        f"{[round(r['grad_norm'], 3) for r in hist]}; ms a step "
+        f"{[round(float(s) * 1e3, 1) for s in steps_s]}"
+        f" (median of steps 2-4 {step_ms:.1f} ms: {audio_s / step_ms * 1e3:.2f} training "
+        f"audio-s/s over {audio_s:.0f} s of audio); torch.cuda.max_memory_allocated "
+        f"{peak:.2f} GiB")
+    check(len(losses) == 4 and all(np.isfinite(losses)), f"training: losses {losses}")
+    check(losses[-1] < losses[0], f"training: the loss did not fall over 4 steps: {losses}")
+    del trainer
+    gc.collect()
+
+    # one step each of the other objectives
+    for kw in (dict(loss="pruned", s_range=5), dict(ctc_weight=0.3)):
+        init_state, step = make_train_step(fe_cfg, enc_cfg, rnnt_cfg, **kw)
+        t0 = time.perf_counter()
+        state, m = step(init_state(params), batch)
+        torch.cuda.synchronize()
+        log(f"training step {kw}: loss {m['loss'].item():.4f}, grad norm "
+            f"{m['grad_norm'].item():.3f}, {time.perf_counter() - t0:.2f} s (a first call)")
+        check(bool(torch.isfinite(m["loss"])) and bool(torch.isfinite(m["grad_norm"]))
+              and all(bool(torch.isfinite(x).all()) for x in tree_leaves(state.params)),
+              f"training {kw}: non-finite")
+        del state
+        gc.collect()
+    del params
+    gc.collect()
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+
+    # checkpoint at step 2 and resume to 4, at 2 blocks of the same width
+    small = replace(enc_cfg, num_layers=min(2, enc_cfg.num_layers))
+    small_params = train_params(1, small, rnnt_cfg, dev)
+    base = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(base, exist_ok=True)
+    root = tempfile.mkdtemp(prefix="train_ckpt_", dir=base)
+    try:
+        cfg = TrainerConfig(checkpoint_dir=root, save_every=2, warmup_steps=1, decay_steps=100,
+                            peak_lr=1e-4, log_every=1)
+        straight = Trainer(fe_cfg, small, rnnt_cfg, replace(cfg, checkpoint_dir=None),
+                           device=dev).init(small_params)
+        h_straight = straight.fit([batch] * 4, max_steps=4)
+        first = Trainer(fe_cfg, small, rnnt_cfg, cfg, device=dev).init(small_params)
+        first.fit([batch] * 2, max_steps=2)
+        t0 = time.perf_counter()
+        first.save()
+        saved = time.perf_counter() - t0
+        size = sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(root) for f in fs)
+        t0 = time.perf_counter()
+        resumed = Trainer(fe_cfg, small, rnnt_cfg, cfg, device=dev).restore_latest(small_params)
+        restored = time.perf_counter() - t0
+        check(resumed.state.step == 2, f"training resume: step {resumed.state.step}")
+        h_resumed = resumed.fit([batch] * 2, max_steps=4)
+        a = torch.cat([x.detach().float().reshape(-1) for x in tree_leaves(straight.state.params)])
+        c = torch.cat([x.detach().float().reshape(-1) for x in tree_leaves(resumed.state.params)])
+        p0 = torch.cat([x.float().reshape(-1) for x in tree_leaves(small_params)])
+        moved = rel_l2(c - p0, a - p0)
+        l_a = [r["loss"] for r in h_straight][2:]
+        l_c = [r["loss"] for r in h_resumed][-2:]
+        log(f"training resume at {small.num_layers} blocks of d={small.d_model}: checkpoint "
+            f"{size / 2 ** 20:.0f} MiB written in {saved:.2f} s, restored in {restored:.2f} s; "
+            f"losses at steps 3-4 {l_c} resumed, {l_a} uninterrupted; params at step 4: the "
+            f"resumed update against the uninterrupted one, relative L2 {moved:.3g} (tol 1e-2), "
+            f"equal bit for bit: {torch.equal(a, c)}")
+        check(resumed.state.step == 4 and straight.state.step == 4, "training resume: steps")
+        check(all(abs(x - y) <= 1e-2 * abs(y) for x, y in zip(l_c, l_a)),
+              f"training resume: losses {l_c} against {l_a}")
+        check(moved <= 1e-2, f"training resume: params differ by {moved} relative")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    log(f"training phase: {time.perf_counter() - t_phase:.1f} s")
+
+
 def main():
     import torch
 
@@ -3819,27 +4265,43 @@ def main():
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, {name}")
     dev = torch.device("cuda")
 
-    t0 = time.perf_counter()
-    _kernels.load_library()
-    info = _kernels.build_info()
-    log(f"kernels built in {time.perf_counter() - t0:.1f} s (nvcc {info['seconds']:.1f} s): "
-        f"{info['path']}")
-    for line in info["log"].splitlines():
-        if "registers" in line or "spill" in line or "Compiling entry" in line:
-            log(f"ptxas: {line.strip()}")
+    with phase("build"):
+        t0 = time.perf_counter()
+        _kernels.load_library()
+        info = _kernels.build_info()
+        log(f"kernels built in {time.perf_counter() - t0:.1f} s (nvcc {info['seconds']:.1f} s): "
+            f"{info['path']}")
+        for line in info["log"].splitlines():
+            if "registers" in line or "spill" in line or "Compiling entry" in line:
+                log(f"ptxas: {line.strip()}")
 
-    rows = kernel_checks(dev)
-    counts = main_path(dev, f"{smi}")
-    nemo_beam40_phase(f"{smi}")
-    head_width_encoder_check()
-    counts.update(nemo_step_path(f"{smi}"))  # rows 12-13 take their launches from here
-    counts.update(k2_path(f"{smi}"))
-    k2_beam_path(f"{smi}")
-    counts.update(espnet_path(f"{smi}"))
-    serving_phase(f"{smi}")
-    decode_options_phase(f"{smi}")
-    converted_paths(f"{smi}")
-    avsr_phase(f"{smi}")
+    with phase("kernel_checks"):
+        rows = kernel_checks(dev)
+    with phase("main_path"):
+        counts = main_path(dev, f"{smi}")
+    with phase("nemo_beam40_phase"):
+        nemo_beam40_phase(f"{smi}")
+    with phase("head_width_encoder_check"):
+        head_width_encoder_check()
+    with phase("nemo_step_path"):
+        counts.update(nemo_step_path(f"{smi}"))  # rows 12-13 take their launches from here
+    with phase("k2_path"):
+        counts.update(k2_path(f"{smi}"))
+    with phase("k2_beam_path"):
+        k2_beam_path(f"{smi}")
+    with phase("espnet_path"):
+        counts.update(espnet_path(f"{smi}"))
+    with phase("serving_phase"):
+        serving_phase(f"{smi}")
+    with phase("decode_options_phase"):
+        decode_options_phase(f"{smi}")
+    with phase("converted_paths"):
+        converted_paths(f"{smi}")
+    with phase("avsr_phase"):
+        avsr_phase(f"{smi}")
+    with phase("training_phase"):
+        training_phase(f"{smi}")
+    log("phase seconds: " + json.dumps({k: round(v, 1) for k, v in PHASE_SECONDS.items()}))
     for row in rows:
         row["launches"] = counts[row["name"]]
     print(json.dumps({"kernels": rows}), flush=True)

@@ -29,6 +29,15 @@ one of three kernel contracts by T and the head shape (packed q/k/v with
 the fused block tail, separate q/k/v, or [B, H, T, dh] inputs with the
 biases added and an fp32 output), and the contracts round at other points,
 so the port picks the same one at every T.
+
+Training (``training/train_step.py``) differentiates the encoder. Where
+autograd records, the kernel sub-blocks call the ops' ``*_diff`` wrappers
+(the kernel forward, the twin's backward), as the reference's call sites
+do; in inference mode they call the kernels directly, with no
+``autograd.Function`` on the serving path. ``remat=True`` recomputes each
+block in the backward (``torch.utils.checkpoint``, as the reference's
+``jax.checkpoint``). The conv-module kernel has no backward in either
+package: ``conv_impl="pallas"`` under autograd raises.
 """
 
 import math
@@ -37,12 +46,18 @@ from typing import Optional
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
+from ..ops._kernels import records
 from ..ops.conformer_conv import fold_batch_norm, fused_conv_module
-from ..ops.ln_dense import add_ln, ln_dense, ln_dense_add
+from ..ops.ln_dense import (
+    add_ln, add_ln_diff, ln_dense, ln_dense_add, ln_dense_add_diff, ln_dense_diff,
+)
+# _SINGLE_PASS_MAX_T: T up to which the [B, H, T, dh] contract runs single-pass
 from ..ops.relpos_attention import (
-    rel_shift, relpos_attention, relpos_attention_blockwise, relpos_attention_fused,
-    relpos_attention_fused_packed,
+    _SINGLE_PASS_MAX_T, rel_shift, relpos_attention, relpos_attention_blockwise,
+    relpos_attention_diff, relpos_attention_fused, relpos_attention_fused_diff,
+    relpos_attention_fused_packed, relpos_attention_fused_packed_diff,
 )
 from .layers import (
     batch_norm_infer, batch_norm_init, conv1d, conv1d_init, conv2d, conv2d_init,
@@ -79,7 +94,7 @@ class FastConformerConfig:
     conv_impl: str = "xla"  # "pallas": the port's conv-module kernel
     lnd_impl: str = "xla"  # "pallas": LayerNorms fused into the following kernels
     residual_dtype: str = "float32"
-    remat: bool = False  # training only; inference ignores it
+    remat: bool = False  # recompute each block in the backward; inference ignores it
     seq_axis: Optional[str] = None
 
     @property
@@ -221,8 +236,6 @@ def _sinusoid_rel_pos(t, d_model, device):
 # the reference's fused attention kernels block T and packed heads by its
 # 128-lane width and hold one query block of at most 512 rows
 _LANES, _FUSED_MAX_T = 128, 512
-# T up to which the [B, H, T, dh] contract runs single-pass (relpos_attention_diff)
-_SINGLE_PASS_MAX_T = 1024
 
 
 def attention_route(cfg: FastConformerConfig, t) -> str:
@@ -264,10 +277,12 @@ def _mhsa_packed(p, r, delta, pos_emb, lengths, cfg: FastConformerConfig):
     h, dh, dt = cfg.num_heads, cfg.head_dim, cfg.dtype
     w_qkv = tuple(p[k]["w"].to(dt) for k in ("attn_q", "attn_k", "attn_v"))
     c_qkv = tuple(p[k]["b"] for k in ("attn_q", "attn_k", "attn_v"))
-    qkv, stream = ln_dense_add(r, delta, p["attn_ln"]["scale"], p["attn_ln"]["bias"], w_qkv,
-                               c_qkv, scale=0.5)
+    diff = records(r, delta, *w_qkv)
+    qkv, stream = (ln_dense_add_diff if diff else ln_dense_add)(
+        r, delta, p["attn_ln"]["scale"], p["attn_ln"]["bias"], w_qkv, c_qkv, scale=0.5)
     pos = dense(p["attn_pos"], pos_emb, dtype=dt).reshape(-1, h, dh)
-    out = relpos_attention_fused_packed(qkv, pos, p["attn_bias_u"], p["attn_bias_v"], lengths, h)
+    attend = relpos_attention_fused_packed_diff if diff else relpos_attention_fused_packed
+    out = attend(qkv, pos, p["attn_bias_u"], p["attn_bias_v"], lengths, h)
     return dense(p["attn_out"], out, dtype=dt), stream
 
 
@@ -284,9 +299,10 @@ def _mhsa_relpos(p, x_raw, pos_emb, mask, lengths, cfg: FastConformerConfig):
     pos = dense(p["attn_pos"], pos_emb, dtype=dt).reshape(-1, h, dh)  # [2T-1, H, dh]
 
     route = attention_route(cfg, t)
+    diff = records(q, k, v, pos)
     if route == "fused":
-        out = relpos_attention_fused(q, k, v, pos, p["attn_bias_u"], p["attn_bias_v"],
-                                     lengths, h)
+        attend = relpos_attention_fused_diff if diff else relpos_attention_fused
+        out = attend(q, k, v, pos, p["attn_bias_u"], p["attn_bias_v"], lengths, h)
         return dense(p["attn_out"], out, dtype=dt)
 
     f32 = torch.float32
@@ -295,7 +311,8 @@ def _mhsa_relpos(p, x_raw, pos_emb, mask, lengths, cfg: FastConformerConfig):
     qv = q + p["attn_bias_v"].to(dt)
     if route == "generic":
         heads_first = lambda x: x.transpose(1, 2).contiguous()  # noqa: E731
-        out = _generic_attn_kernel(t)(
+        attend = relpos_attention_diff if diff else _generic_attn_kernel(t)
+        out = attend(
             heads_first(qu), heads_first(qv), heads_first(k.reshape(b, t, h, dh)),
             heads_first(v.reshape(b, t, h, dh)), pos, lengths)  # [B, H, T, dh] fp32
         out = out.transpose(1, 2).to(dt).reshape(b, t, d)
@@ -344,8 +361,10 @@ def _conv_module(p, x_raw, mask, lengths, cfg: FastConformerConfig):
 def _ffn(p, name, x, cfg: FastConformerConfig):
     dt = cfg.dtype
     if cfg.lnd_impl == "pallas":
-        y = ln_dense(x, p[f"{name}_ln"]["scale"], p[f"{name}_ln"]["bias"],
-                     p[f"{name}_in"]["w"].to(dt), p[f"{name}_in"]["b"], activation="swish")
+        w = p[f"{name}_in"]["w"].to(dt)
+        y = (ln_dense_diff if records(x, w) else ln_dense)(
+            x, p[f"{name}_ln"]["scale"], p[f"{name}_ln"]["bias"], w, p[f"{name}_in"]["b"],
+            activation="swish")
         return dense(p[f"{name}_out"], y, dtype=dt)
     y = layer_norm(p[f"{name}_ln"], x).to(dt)
     y = swish(dense(p[f"{name}_in"], y, dtype=dt))
@@ -367,8 +386,9 @@ def _block(p, x, pos_emb, mask, lengths, cfg: FastConformerConfig):
         r2 = r1 + attn_y.to(r1.dtype)
         r3 = r2 + _conv_module(p, r2, mask, lengths, cfg).to(r1.dtype)
         y3 = _ffn(p, "ffn2", r3, cfg)
-        return add_ln(r3, y3, lengths, p["final_ln"]["scale"], p["final_ln"]["bias"],
-                      scale=0.5, out_dtype=res_dt)
+        tail = add_ln_diff if records(r3, y3) else add_ln
+        return tail(r3, y3, lengths, p["final_ln"]["scale"], p["final_ln"]["bias"],
+                    scale=0.5, out_dtype=res_dt)
     x = x + 0.5 * _ffn(p, "ffn1", x, cfg)
     x = x + _mhsa_relpos(p, x, pos_emb, mask, lengths, cfg)
     x = x + _conv_module(p, x, mask, lengths, cfg)
@@ -414,8 +434,13 @@ def fastconformer_encode(params, feats, feat_lengths, cfg: FastConformerConfig):
     x, lengths, pos_emb, mask = _encode_prologue(params, feats, feat_lengths, cfg)
     # what the reference's kernels are given: the valid count within T
     key_lengths = mask.sum(dim=-1, dtype=torch.int32)
+    remat = cfg.remat and torch.is_grad_enabled()
     for i in range(cfg.num_layers):
-        x = _block(_layer(params["blocks"], i), x, pos_emb, mask, key_lengths, cfg)
+        p = _layer(params["blocks"], i)
+        if remat:  # the block's activations recomputed in the backward
+            x = checkpoint(_block, p, x, pos_emb, mask, key_lengths, cfg, use_reentrant=False)
+        else:
+            x = _block(p, x, pos_emb, mask, key_lengths, cfg)
     if cfg.final_norm:
         x = layer_norm(params["after_norm"], x)
     return x.to(torch.float32), lengths

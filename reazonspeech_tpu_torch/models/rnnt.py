@@ -25,7 +25,8 @@ from .layers import dense, dense_init, embedding_init
 
 __all__ = [
     "RNNTConfig", "init_predictor", "init_joint", "predictor_zero_state",
-    "predictor_step", "joint_precompute_enc", "joint_step_from_enc_proj",
+    "predictor_step", "predictor_sequence", "joint_step", "joint_full",
+    "joint_precompute_enc", "joint_step_from_enc_proj",
 ]
 
 
@@ -161,6 +162,27 @@ def predictor_step(params, tokens, state, cfg: RNNTConfig):
     return x.to(torch.float32), (torch.stack(hs), torch.stack(cs))
 
 
+def predictor_sequence(params, tokens, cfg: RNNTConfig, state=None):
+    """Teacher-forced prediction over a whole label sequence (training).
+
+    Args:
+      tokens: [B, U] int label sequences (no SOS: blank is prepended here)
+      state: the start state (default :func:`predictor_zero_state`)
+
+    Returns g [B, U+1, H] fp32; g[:, 0] is the SOS context's output. One
+    :func:`predictor_step` a position, as the reference's scan."""
+    b = tokens.shape[0]
+    sos = torch.full((b, 1), cfg.blank_id, dtype=tokens.dtype, device=tokens.device)
+    inp = torch.cat([sos, tokens], dim=1)
+    if state is None:
+        state = predictor_zero_state(b, cfg, tokens.device)
+    gs = []
+    for u in range(inp.shape[1]):
+        g, state = predictor_step(params, inp[:, u], state, cfg)
+        gs.append(g)
+    return torch.stack(gs, dim=1)
+
+
 # ---------------------------------------------------------------------------
 # joint network
 # ---------------------------------------------------------------------------
@@ -174,6 +196,25 @@ def _joint_act(x, cfg: RNNTConfig):
     if cfg.joint_activation == "sigmoid":
         return torch.sigmoid(x)
     raise ValueError(cfg.joint_activation)
+
+
+def joint_step(params, enc_frame, pred_out, cfg: RNNTConfig):
+    """Pointwise joint: enc_frame [B, E], pred_out [B, H] -> logits
+    [B, num_classes] fp32."""
+    dt = cfg.dtype
+    z = dense(params["enc"], enc_frame, dtype=dt) + dense(params["pred"], pred_out, dtype=dt)
+    return dense(params["out"], _joint_act(z, cfg), dtype=dt).to(torch.float32)
+
+
+def joint_full(params, enc, pred, cfg: RNNTConfig):
+    """The whole lattice's joint, for the training loss: enc [B, T, E],
+    pred [B, U+1, H] -> logits [B, T, U+1, num_classes] fp32 (the hidden
+    layer in the compute dtype)."""
+    dt = cfg.dtype
+    f = dense(params["enc"], enc, dtype=dt)  # [B, T, J]
+    g = dense(params["pred"], pred, dtype=dt)  # [B, U+1, J]
+    z = _joint_act(f[:, :, None, :] + g[:, None, :, :], cfg)
+    return dense(params["out"], z, dtype=dt).to(torch.float32)
 
 
 def joint_precompute_enc(params, enc, cfg: RNNTConfig):

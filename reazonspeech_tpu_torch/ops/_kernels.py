@@ -30,7 +30,8 @@ from pathlib import Path
 import torch
 
 __all__ = ["KERNELS", "as_dtype", "build_info", "check_cuda", "forced_tile_n", "launch",
-           "launch_on", "launches", "load_library", "stream_of", "workspace_words"]
+           "launch_on", "launches", "load_library", "records", "refuse_grad", "stream_of",
+           "workspace_words"]
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -217,6 +218,24 @@ def forced_tile_n(tile_n):
         yield
     finally:
         fn(prev)
+
+
+def records(*tensors):
+    """True when autograd records an op on these inputs: grad mode is on and
+    one of them (``None`` and non-tensors skipped) requires grad."""
+    return torch.is_grad_enabled() and any(
+        isinstance(t, torch.Tensor) and t.requires_grad for t in tensors)
+
+
+def refuse_grad(kernel, *tensors, hint=None):
+    """Raise NotImplementedError when autograd records on ``tensors``: a
+    kernel launched through ctypes returns a tensor with no ``grad_fn``, so
+    its gradients would be silently zero. ``hint`` names what to call
+    instead."""
+    if records(*tensors):
+        raise NotImplementedError(
+            f"{kernel}: the CUDA kernel has no backward"
+            + (f"; {hint}" if hint else " (the JAX kernel has no VJP either)"))
 
 
 def stream_of(t):

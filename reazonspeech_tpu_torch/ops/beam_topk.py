@@ -28,7 +28,9 @@ zeroed when allocated and the kernels alone change them from then on.
 
 import torch
 
-from ._kernels import as_dtype, check_cuda, launch_on, stream_of, workspace_words
+from ._kernels import (
+    as_dtype, check_cuda, launch_on, refuse_grad, stream_of, workspace_words,
+)
 
 __all__ = ["joint_topm", "joint_topm_plain", "topm_logsoftmax", "topm_logsoftmax_plain"]
 
@@ -87,6 +89,7 @@ def topm_logsoftmax(logits, m, blank):
     """
     if logits.device.type == "cpu":
         return topm_logsoftmax_plain(logits, m, blank)
+    refuse_grad("topm_logsoftmax", logits)
     r, v = logits.shape
     if m < 1 or not 0 <= blank < v:
         raise ValueError(f"topm_logsoftmax: m={m}, blank={blank}, V={v} out of range")
@@ -144,6 +147,7 @@ def joint_topm(w_pred, b_pred, w_out, b_out, enc_proj_row, dec_out, m, blank, *,
     if enc_proj_row.device.type == "cpu":
         return joint_topm_plain(w_pred, b_pred, w_out, b_out, enc_proj_row, dec_out, m, blank,
                                 activation=activation, compute_dtype=compute_dtype)
+    refuse_grad("joint_topm", w_pred, b_pred, w_out, b_out, enc_proj_row, dec_out)
     if as_dtype(compute_dtype) != torch.float32:
         raise ValueError(f"joint_topm: compute_dtype {compute_dtype} on CUDA; the beam decoders "
                          "pass float32 only, the kernel takes nothing else")

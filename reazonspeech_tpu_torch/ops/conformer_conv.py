@@ -31,7 +31,7 @@ depthwise, norm and swish, output in the compute dtype).
 import torch
 import torch.nn.functional as F
 
-from ._kernels import check_cuda, launch, stream_of
+from ._kernels import check_cuda, launch, refuse_grad, stream_of
 from .ln_dense import layer_norm_fp32
 
 __all__ = ["fold_batch_norm", "fused_conv_module", "fused_conv_module_plain"]
@@ -104,6 +104,9 @@ def fused_conv_module(x, lengths, w_in, b_in, dw, b_dw, bn_scale, bn_bias,
     """
     if norm not in ("folded", "layer"):
         raise ValueError(f"fused_conv_module: unknown norm {norm!r}")
+    # on every device, as the JAX kernel, which has no VJP
+    refuse_grad("fused_conv_module", x, w_in, b_in, dw, b_dw, bn_scale, bn_bias, w_out, b_out,
+                ln_scale, ln_bias)
     if x.device.type == "cpu":
         return fused_conv_module_plain(x, lengths, w_in, b_in, dw, b_dw, bn_scale, bn_bias,
                                        w_out, b_out, norm=norm, ln_scale=ln_scale,

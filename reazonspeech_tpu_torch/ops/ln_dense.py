@@ -18,14 +18,23 @@ optional swish and one rounding at the end. On CUDA tensors the ops launch
 the hand-written kernels in ``csrc/ln_dense.cu`` (the projection on
 ``csrc/gemm_sm90.cuh``'s TMA + wgmma GEMM); on CPU tensors they run their
 ``*_plain`` twins.
+
+The ``*_diff`` functions are the ports of the JAX package's custom-VJP
+wrappers (``ln_dense_diff``, ``ln_dense_add_diff``, ``add_ln_diff``): the
+kernel forward, the backward by autograd through the twin recomputed at
+the same dtypes (the JAX ``_bwd`` differentiates the XLA formula, which
+the twin is). Training calls them; on a CUDA tensor that requires grad the
+plain entries raise, since a ctypes launch records no ``grad_fn``.
 """
 
 import torch
 
-from ._kernels import check_cuda, launch, stream_of
+from ._kernels import check_cuda, launch, refuse_grad, stream_of
+from ._vjp import kernel_forward
 
-__all__ = ["add_ln", "add_ln_plain", "layer_norm_fp32", "ln_dense", "ln_dense_add",
-           "ln_dense_add_plain", "ln_dense_plain"]
+__all__ = ["add_ln", "add_ln_diff", "add_ln_plain", "layer_norm_fp32", "ln_dense",
+           "ln_dense_add", "ln_dense_add_diff", "ln_dense_add_plain", "ln_dense_diff",
+           "ln_dense_plain"]
 
 _MAX_SEGMENTS = 3
 _ALIGN = 8  # D and every segment width: the CUDA GEMM's TMA reads rows of whole 16-byte units
@@ -130,6 +139,7 @@ def add_ln(r, y, lengths, ln_scale, ln_bias, *, scale=1.0, eps=1e-5, out_dtype=N
     """
     if r.device.type == "cpu":
         return add_ln_plain(r, y, lengths, ln_scale, ln_bias, scale, eps, out_dtype)
+    refuse_grad("add_ln", r, y, ln_scale, ln_bias, hint="call add_ln_diff")
     f32, dev = torch.float32, r.device
     b, t, d = r.shape
     if (out_dtype or r.dtype) != f32:
@@ -156,6 +166,8 @@ def _affine(ln_scale, ln_bias, d, dev):
 def _ln_dense_cuda(x, delta, scale, ln_scale, ln_bias, w, c, activation, eps):
     """The kernel path."""
     ws, cs = _segments(w, c)
+    kernel = "ln_dense" if delta is None else "ln_dense_add"
+    refuse_grad(kernel, x, delta, ln_scale, ln_bias, *ws, *cs, hint=f"call {kernel}_diff")
     _check_activation(activation)
     bf16, f32, dev = torch.bfloat16, torch.float32, x.device
     b, t, d = x.shape
@@ -194,3 +206,51 @@ def _ln_dense_cuda(x, delta, scale, ln_scale, ln_bias, w, c, activation, eps):
                *w_ptrs, *c_ptrs, *widths, xn.data_ptr(), summed.data_ptr(), out.data_ptr(),
                b * t, d, swish, float(scale), float(eps), stream_of(x))
     return out, summed
+
+
+# --- differentiable wrappers: the kernel forward, the twin's backward ----------
+
+
+def ln_dense_diff(x, ln_scale, ln_bias, w, c=None, *, activation=None, eps=1e-5):
+    """Differentiable :func:`ln_dense` (JAX ``ln_dense_diff``): gradients
+    for x, the LayerNorm affine, every weight segment and bias."""
+    ws, cs = _segments(w, c)
+    n = len(ws)
+
+    def kernel(x, g, b, *wc):
+        return ln_dense(x, g, b, wc[:n], wc[n:], activation=activation, eps=eps)
+
+    def twin(x, g, b, *wc):
+        return ln_dense_plain(x, g, b, wc[:n], wc[n:], activation, eps)
+
+    return kernel_forward(kernel, twin, x, ln_scale, ln_bias, *ws, *cs)
+
+
+def ln_dense_add_diff(r, delta, ln_scale, ln_bias, w, c=None, *, scale=1.0, activation=None,
+                      eps=1e-5):
+    """Differentiable :func:`ln_dense_add` (JAX ``ln_dense_add_diff``):
+    both outputs, the projection and the summed stream, carry gradients."""
+    ws, cs = _segments(w, c)
+    n = len(ws)
+
+    def kernel(r, dl, g, b, *wc):
+        return ln_dense_add(r, dl, g, b, wc[:n], wc[n:], scale=scale, activation=activation,
+                            eps=eps)
+
+    def twin(r, dl, g, b, *wc):
+        return ln_dense_add_plain(r, dl, g, b, wc[:n], wc[n:], scale, activation, eps)
+
+    return kernel_forward(kernel, twin, r, delta, ln_scale, ln_bias, *ws, *cs)
+
+
+def add_ln_diff(r, y, lengths, ln_scale, ln_bias, *, scale=1.0, eps=1e-5, out_dtype=None):
+    """Differentiable :func:`add_ln` (JAX ``add_ln_diff``); ``lengths``
+    takes no gradient."""
+
+    def kernel(r, y, lens, g, b):
+        return add_ln(r, y, lens, g, b, scale=scale, eps=eps, out_dtype=out_dtype)
+
+    def twin(r, y, lens, g, b):
+        return add_ln_plain(r, y, lens, g, b, scale, eps, out_dtype)
+
+    return kernel_forward(kernel, twin, r, y, lengths, ln_scale, ln_bias)

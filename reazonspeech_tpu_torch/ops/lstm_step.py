@@ -15,7 +15,7 @@ and the shared memory a block may hold.
 
 import torch
 
-from ._kernels import as_dtype, check_cuda, launch_on, stream_of
+from ._kernels import as_dtype, check_cuda, launch_on, refuse_grad, stream_of
 
 __all__ = ["lstm_cell_step", "lstm_cell_step_plain"]
 
@@ -44,6 +44,7 @@ def lstm_cell_step(w_ih, w_hh, bias, x, h, c, *, compute_dtype="bfloat16"):
     """
     if x.device.type == "cpu":
         return lstm_cell_step_plain(w_ih, w_hh, bias, x, h, c, compute_dtype=compute_dtype)
+    refuse_grad("lstm_cell_step", w_ih, w_hh, bias, x, h, c)
     if as_dtype(compute_dtype) != torch.float32:
         raise ValueError(f"lstm_cell_step: compute_dtype {compute_dtype} on CUDA; the beam "
                          "decoders pass float32 only, the kernel takes nothing else")

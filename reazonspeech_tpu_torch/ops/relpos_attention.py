@@ -11,8 +11,9 @@ read from and written to [B, T, D] tensors with the u/v biases added to q
 inside. ``relpos_attention_fused_packed`` (the port of
 ``relpos_attention_fused_packed``) reads q, k and v from one packed
 [B, T, 3D] projection, the output of the q/k/v :func:`~.ln_dense.ln_dense`.
-On CUDA tensors both launch the hand-written Hopper kernel in
-``csrc/relpos_attention.cu`` (one kernel with a row stride, online softmax
+On CUDA tensors both launch the hand-written Hopper kernel of
+``csrc/relpos_attention.cuh`` (its C entries in ``relpos_attention.cu``
+and ``relpos_attention_single.cu``; one kernel with a row stride, online softmax
 over key tiles, so no T cap, and any head size up to 256); on CPU tensors
 they run their ``*_plain`` twins, the plain PyTorch formula with the JAX
 kernel's dtype chain.
@@ -28,6 +29,14 @@ kernel (entries ``rs_relpos_attention``, two key sweeps, and
 ``rs_relpos_attention_blockwise``, one online sweep over 64-key tiles); on
 CPU tensors their twins (the streamed one at the JAX kernel's 256-key
 block; its ``block`` and ``round_lanes`` set the twin's geometry).
+
+The ``*_diff`` functions are the ports of the JAX package's custom-VJP
+wrappers: the kernel forward, the backward by autograd through the
+single-pass twin on fp32 copies of the inputs (the JAX ``_bwd``
+differentiates its fp32 XLA formula, which the twin is at fp32: no
+rounding to bf16 anywhere), the gradients cast to the inputs' dtypes.
+Training calls them; on a CUDA tensor that requires grad the plain entries
+raise, since a ctypes launch records no ``grad_fn``.
 """
 
 import math
@@ -35,12 +44,17 @@ import math
 import torch
 import torch.nn.functional as F
 
-from ._kernels import check_cuda, launch, stream_of
+from ._kernels import check_cuda, launch, refuse_grad, stream_of
+from ._vjp import kernel_forward
 
 __all__ = ["rel_shift", "relpos_attention", "relpos_attention_blockwise",
-           "relpos_attention_blockwise_plain", "relpos_attention_fused",
-           "relpos_attention_fused_packed", "relpos_attention_fused_packed_plain",
-           "relpos_attention_fused_plain", "relpos_attention_plain"]
+           "relpos_attention_blockwise_plain", "relpos_attention_diff",
+           "relpos_attention_fused", "relpos_attention_fused_diff",
+           "relpos_attention_fused_packed", "relpos_attention_fused_packed_diff",
+           "relpos_attention_fused_packed_plain", "relpos_attention_fused_plain",
+           "relpos_attention_plain"]
+
+_SINGLE_PASS_MAX_T = 1024  # relpos_attention_diff streams the keys past this T
 
 _MASK = -1.0e30  # score of a key past the valid length (the JAX kernel's constant)
 _MAX_HEAD_DIM = 256  # the widest head the CUDA kernel takes (the JAX kernels take any)
@@ -114,6 +128,8 @@ def relpos_attention_fused(q, k, v, pos, bias_u, bias_v, lengths, heads):
     """
     if q.device.type == "cpu":
         return relpos_attention_fused_plain(q, k, v, pos, bias_u, bias_v, lengths, heads)
+    refuse_grad("relpos_attention_fused", q, k, v, pos, bias_u, bias_v,
+                hint="call relpos_attention_fused_diff")
     b, t, d = q.shape
     h = heads
     dh = _head_dim(d, h, "relpos_attention_fused")
@@ -143,6 +159,8 @@ def relpos_attention_fused_packed(qkv, pos, bias_u, bias_v, lengths, heads):
     """
     if qkv.device.type == "cpu":
         return relpos_attention_fused_packed_plain(qkv, pos, bias_u, bias_v, lengths, heads)
+    refuse_grad("relpos_attention_fused_packed", qkv, pos, bias_u, bias_v,
+                hint="call relpos_attention_fused_packed_diff")
     b, t, d3 = qkv.shape
     h = heads
     if d3 % 3:
@@ -225,6 +243,7 @@ def relpos_attention_blockwise_plain(qu, qv, k, v, pos, lengths, block=256, roun
 def _launch_bhtd(entry, qu, qv, k, v, pos, lengths):
     """Check the [B, H, T, dh] inputs the CUDA kernel takes and launch
     ``entry``; returns the fp32 [B, H, T, dh] output."""
+    refuse_grad(entry.removeprefix("rs_"), qu, qv, k, v, pos, hint="call relpos_attention_diff")
     b, h, t, dh = qu.shape
     if dh > _MAX_HEAD_DIM:
         raise ValueError(f"{entry}: head dim {dh} past the kernel's {_MAX_HEAD_DIM}")
@@ -264,3 +283,43 @@ def relpos_attention_blockwise(qu, qv, k, v, pos, lengths):
     if qu.device.type == "cpu":
         return relpos_attention_blockwise_plain(qu, qv, k, v, pos, lengths)
     return _launch_bhtd("rs_relpos_attention_blockwise", qu, qv, k, v, pos, lengths)
+
+
+# --- differentiable wrappers: the kernel forward, the fp32 twin's backward ------
+
+
+def relpos_attention_fused_packed_diff(qkv, pos, bias_u, bias_v, lengths, heads):
+    """Differentiable :func:`relpos_attention_fused_packed` (JAX
+    ``relpos_attention_fused_packed_diff``): gradients for the packed qkv,
+    the position table and both biases."""
+
+    def kernel(qkv, pos, bu, bv, lens):
+        return relpos_attention_fused_packed(qkv, pos, bu, bv, lens, heads)
+
+    def twin(qkv, pos, bu, bv, lens):
+        return relpos_attention_fused_packed_plain(qkv, pos, bu, bv, lens, heads)
+
+    return kernel_forward(kernel, twin, qkv, pos, bias_u, bias_v, lengths, upcast=True)
+
+
+def relpos_attention_fused_diff(q, k, v, pos, bias_u, bias_v, lengths, heads):
+    """Differentiable :func:`relpos_attention_fused` (JAX
+    ``relpos_attention_fused_diff``)."""
+
+    def kernel(q, k, v, pos, bu, bv, lens):
+        return relpos_attention_fused(q, k, v, pos, bu, bv, lens, heads)
+
+    def twin(q, k, v, pos, bu, bv, lens):
+        return relpos_attention_fused_plain(q, k, v, pos, bu, bv, lens, heads)
+
+    return kernel_forward(kernel, twin, q, k, v, pos, bias_u, bias_v, lengths, upcast=True)
+
+
+def relpos_attention_diff(qu, qv, k, v, pos, lengths):
+    """Differentiable [B, H, T, dh] attention (JAX ``relpos_attention_diff``):
+    the single-pass kernel up to T = 1024, the streamed one past it; the
+    backward is the single-pass formula's at every T, as in JAX."""
+    t = qu.shape[2]
+    kernel = relpos_attention if t <= _SINGLE_PASS_MAX_T else relpos_attention_blockwise
+    return kernel_forward(kernel, relpos_attention_plain, qu, qv, k, v, pos, lengths,
+                          upcast=True)

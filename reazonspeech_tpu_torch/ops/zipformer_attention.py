@@ -33,7 +33,7 @@ import math
 import torch
 import torch.nn.functional as F
 
-from ._kernels import check_cuda, launch, stream_of
+from ._kernels import check_cuda, launch, refuse_grad, stream_of
 from .relpos_attention import rel_shift
 
 __all__ = ["shared_rel_attention", "shared_rel_attention_blockwise",
@@ -114,6 +114,7 @@ def shared_rel_attention_blockwise_plain(q, k, qp, pos, v, lengths, heads=1, blo
 
 def _launch(entry, q, k, qp, pos, v, lengths, heads):
     """Check the inputs the CUDA kernel takes and launch ``entry``."""
+    refuse_grad(entry.removeprefix("rs_"), q, k, qp, pos, v)
     g, t, qd = q.shape
     pd, dv = qp.shape[-1], v.shape[-1]
     if not 0 < qd <= _MAX_QD or not 0 < pd <= _MAX_PD or heads <= 0:

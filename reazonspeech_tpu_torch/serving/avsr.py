@@ -63,7 +63,10 @@ class AVSRBatcher:
         self._stream = torch.cuda.Stream(self.device) if self.device.type == "cuda" else None
         self._queue = queue.Queue()
         self._running = True
-        self.batch_shapes = []  # (b_pad, t_pad) per dispatched tick
+        # bounded for the server's life: a tick counter and the set of the
+        # dispatched (b_pad, t_pad) shapes (the bucket grid's)
+        self.ticks = 0
+        self.batch_shapes = set()
         self._thread = threading.Thread(target=self._loop, daemon=True, name="AVSRBatcher")
         self._thread.start()
 
@@ -183,7 +186,8 @@ class AVSRBatcher:
                         audio[i, :n] = a
                     if v is not None:
                         video[i, :n] = v
-                self.batch_shapes.append((b_pad, t_pad))
+                self.ticks += 1
+                self.batch_shapes.add((b_pad, t_pad))
                 toks = self._generate(audio, video, lens)
                 for i, (_, _, fut) in enumerate(items):
                     row = toks[i]

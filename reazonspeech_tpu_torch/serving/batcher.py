@@ -65,8 +65,12 @@ class MicroBatcher:
                 f"batch_multiple={self.batch_multiple} (mesh data axis)")
         self._queue = queue.Queue()
         self._running = True
-        self.batch_sizes = []  # observability: size of every executed batch
-        self.batch_shapes = []  # (b_pad, samples) actually dispatched
+        # observability, bounded for the server's life: counters and the set
+        # of dispatched (b_pad, samples) shapes (a bucket grid's, not a tick's)
+        self.ticks = 0  # batches dispatched
+        self.requests = 0  # requests answered by them
+        self.largest_batch = 0  # the most requests one batch held
+        self.batch_shapes = set()
         self._thread = threading.Thread(target=self._loop, daemon=True,
                                         name="MicroBatcher")
         self._thread.start()
@@ -195,10 +199,12 @@ class MicroBatcher:
                 for i, (w, _) in enumerate(items):
                     buf[i, : len(w)] = w
                     lens[i] = len(w)
-                self.batch_shapes.append((b_pad, padded))
+                self.ticks += 1
+                self.batch_shapes.add((b_pad, padded))
                 out = self.model.decode_batch(buf, lens)
                 tokens, frames, counts = out[0], out[1], out[2]
-                self.batch_sizes.append(b)
+                self.requests += b
+                self.largest_batch = max(self.largest_batch, b)
                 for i, (_, fut) in enumerate(items):
                     c = int(counts[i])
                     fut.set_result((tokens[i, :c].tolist(), frames[i, :c].tolist()))

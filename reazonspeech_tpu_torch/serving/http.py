@@ -150,12 +150,11 @@ def make_app(model, seconds_per_frame=0.08, executor="micro", **batcher_kw):
             self.wfile.write(body)
 
         def _stats(self):
-            sizes = getattr(batcher, "batch_sizes", None)
             stats = {"ok": True, "executor": executor}
-            if sizes is not None:
-                stats["batches"] = len(sizes)
+            if isinstance(batcher, MicroBatcher):
+                stats["batches"] = batcher.ticks
                 stats["mean_batch"] = (
-                    float(np.mean(sizes)) if sizes else 0.0)
+                    batcher.requests / batcher.ticks if batcher.ticks else 0.0)
             else:  # continuous executor
                 stats.update(batcher.stats())
             return stats
@@ -280,7 +279,7 @@ def make_avsr_app(model, tokenizer=None, **batcher_kw):
 
         def do_GET(self):
             stats = {"ok": True, "flavor": "avsr", "executor": "avsr-micro",
-                     "ticks": len(batcher.batch_shapes)}
+                     "ticks": batcher.ticks}
             if self.path == "/healthz":
                 self._send(200, stats)
             elif self.path == "/metrics":  # Prometheus scrape target

@@ -1,10 +1,12 @@
 """The espnet slice of the port against the JAX package on the CPU: the
 espnet frontend preset, GlobalMVN and conv2d subsampling, the tiny
 Conformer encoder on both attention routes, the CTC blank scan and Viterbi
-alignment, Graves beam search, and ``transcribe`` / ``decode_batch`` /
-``ctc_probs`` / the CLI on one tree written by the JAX store; then the
-loader's errors and the device default. fp32 compute throughout; the JAX
-kernels run in interpret mode."""
+alignment, Graves beam search; then the loader's errors and the device
+default. ``transcribe`` / ``ctc_probs`` / the CLI are in
+``test_torch_espnet_transcribe.py`` and ``decode_batch`` in
+``test_torch_espnet_decode.py``, on the tree this module's fixtures write
+with the JAX store. fp32 compute throughout; the JAX kernels run in
+interpret mode."""
 
 from dataclasses import asdict, replace
 
@@ -19,7 +21,6 @@ from reazonspeech_tpu.convert.store import save_param_tree
 from reazonspeech_tpu.decoding import ctc as jctc
 from reazonspeech_tpu.decoding import transducer_graves as jgraves
 from reazonspeech_tpu.espnet.asr import model as jmodel
-from reazonspeech_tpu.espnet.asr.transcribe import transcribe as jax_transcribe
 from reazonspeech_tpu.frontend import features as jfeat
 from reazonspeech_tpu.models import conformer as jconf
 from reazonspeech_tpu.models import fastconformer as jfc
@@ -30,9 +31,7 @@ from reazonspeech_tpu_torch.core.hub import CheckpointNotFoundError
 from reazonspeech_tpu_torch.decoding import ctc as tctc
 from reazonspeech_tpu_torch.decoding import transducer_graves as tgraves
 from reazonspeech_tpu_torch.decoding.transducer_maes import MAESBeamConfig
-from reazonspeech_tpu_torch.espnet.asr import (
-    TranscribeConfig, audio_from_numpy, load_model, transcribe,
-)
+from reazonspeech_tpu_torch.espnet.asr import load_model
 from reazonspeech_tpu_torch.espnet.asr import model as tmodel
 from reazonspeech_tpu_torch.frontend import features as tfeat
 from reazonspeech_tpu_torch.models import conformer as tconf
@@ -52,6 +51,17 @@ RNNT = dict(vocab_size=len(TOKENS), enc_dim=64, pred_hidden=64, joint_hidden=64,
 # blank so that the 20 s blank scan finds runs to cut at, the transducer
 # blank so that the beam search ends frames by ESPnet's test
 CTC_BLANK_BIAS, JOINT_BLANK_BIAS = 8.0, 2.5
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Torch on one intra-op thread: the Graves searches issue thousands of
+    tiny ops, and a team of threads each under a loaded xdist run took a
+    beam-20 case from 3.5 s alone to 590 s."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _wav(seconds, seed):
@@ -302,108 +312,14 @@ def test_graves_stats_and_unported_knobs():
         torch.testing.assert_close(got[3], want[3], atol=1e-5, rtol=0)
 
 
-# --- (h) the entry points on one JAX-saved tree --------------------------------
-
-
-def test_ctc_probs_matches_jax(models, monkeypatch):
-    patch_interpret(monkeypatch)
-    jm, tm = models
-    wav = _wav(3.0, seed=3)
-    want, got = jm.ctc_probs(wav), tm.ctc_probs(wav)
-    assert got.shape == want.shape == (74, len(TOKENS))
-    assert np.abs(got - want).max() <= 1e-5
-
-
-def test_transcribe_short_matches_jax(models, monkeypatch):
-    """One window: every field of the TranscribeResult equal (the port's
-    classes are its own, so they compare as dicts)."""
-    patch_interpret(monkeypatch)
-    jm, tm = models
-    audio = audio_from_numpy(_wav(3.0, seed=7), SR)
-    got = transcribe(tm, audio, TranscribeConfig(verbose=False))
-    want = jax_transcribe(jm, audio, jmodel_config(verbose=False))
-    assert asdict(got) == asdict(want)
-    assert len(got.text) > 0 and len(got.segments) > 0
+# --- (h) the entry points on one JAX-saved tree: test_torch_espnet_transcribe.py
+# (ctc_probs, transcribe, the CLI) and test_torch_espnet_decode.py (decode_batch)
 
 
 def jmodel_config(**kw):
     from reazonspeech_tpu.espnet.asr import TranscribeConfig as JConfig
 
     return JConfig(**kw)
-
-
-def test_transcribe_long_form_matches_jax(models, monkeypatch):
-    """24 s: the 20 s window is cut at the longest CTC blank run's midpoint
-    and the rest decoded as a second window; results equal."""
-    patch_interpret(monkeypatch)
-    jm, tm = models
-    wav = _wav(24.0, seed=11)
-    wav[14 * SR:15 * SR] *= 0.01  # a pause for the blank scan
-    audio = audio_from_numpy(wav, SR)
-    got = transcribe(tm, audio, TranscribeConfig(verbose=False))
-    want = jax_transcribe(jm, audio, jmodel_config(verbose=False))
-    assert asdict(got) == asdict(want)
-    assert len(got.segments) >= 2 and got.segments[-1].end_seconds > 15.0
-
-
-def test_transcribe_packed_route_matches_jax(tmp_path, monkeypatch):
-    """The same on a tree with 8 heads of dh=16 (d=128), whose short windows
-    take the packed attention route and the fused block tail."""
-    patch_interpret(monkeypatch)
-    cfg = dict(ENC, num_heads=8, d_model=128)
-    enc_cfg, rnnt_cfg = jconf.espnet_encoder_config(**cfg), jrnnt.RNNTConfig(**dict(RNNT,
-                                                                                    enc_dim=128))
-    path = str(tmp_path / "packed")
-    save_param_tree(path, _espnet_tree(enc_cfg, rnnt_cfg, seed=4),
-                    {"token_list": TOKENS, "enc_cfg": asdict(enc_cfg),
-                     "rnnt_cfg": asdict(rnnt_cfg)})
-    jm = jmodel.load_model_container(checkpoint=path, beam_size=4)
-    tm = tmodel.load_model_container(checkpoint=path, beam_size=4, device="cpu")
-    assert tfc.attention_route(tm.enc_cfg, 74) == "packed"
-    audio = audio_from_numpy(_wav(3.0, seed=8), SR)
-    got = transcribe(tm, audio, TranscribeConfig(verbose=False))
-    want = jax_transcribe(jm, audio, jmodel_config(verbose=False))
-    assert asdict(got) == asdict(want) and len(got.text) > 0
-
-
-@pytest.mark.parametrize("beam", [4, 20])
-def test_decode_batch_matches_jax(tree_path, monkeypatch, beam):
-    """A ragged batch through the whole pass (frontend, GlobalMVN, encoder,
-    Graves): tokens, frames, counts and encoder lengths equal."""
-    patch_interpret(monkeypatch)
-    jm = jmodel.load_model_container(checkpoint=tree_path, beam_size=beam)
-    tm = tmodel.load_model_container(checkpoint=tree_path, beam_size=beam, device="cpu")
-    wav = np.zeros((2, 4 * SR), np.float32)
-    wav[0], wav[1, :3 * SR] = _wav(4.0, seed=21), _wav(3.0, seed=22)
-    lens = np.array([4 * SR, 3 * SR], np.int32)
-    got, want = tm.decode_batch(wav, lens), jm.decode_batch(wav, lens)
-    for g, w in zip(got, want):
-        np.testing.assert_array_equal(g, np.asarray(w))
-    assert got[2].min() > 0
-    tokens, frames = tm.decode_single(wav[0])
-    assert tokens == got[0][0, :got[2][0]].tolist() and frames == got[1][0, :got[2][0]].tolist()
-
-
-def test_cli_matches_jax(models, tmp_path, monkeypatch):
-    """The CLI writes the same VTT as the JAX package's on one wav."""
-    import sys
-
-    from reazonspeech_tpu.espnet.asr import cli as jcli
-    from reazonspeech_tpu_torch.core.audio import audio_to_file
-    from reazonspeech_tpu_torch.espnet.asr import cli as tcli
-
-    patch_interpret(monkeypatch)
-    jm, tm = models
-    wav = tmp_path / "in.wav"
-    audio_to_file(str(wav), audio_from_numpy(_wav(3.0, seed=7), SR))
-    outs = []
-    for cli, model, name in ((tcli, tm, "port"), (jcli, jm, "jax")):
-        out = tmp_path / f"{name}.vtt"
-        monkeypatch.setattr(cli, "load_model", lambda model=model: model)
-        monkeypatch.setattr(sys, "argv", ["espnet-asr", "--to=vtt", "-o", str(out), str(wav)])
-        assert cli.main() is None
-        outs.append(out.read_text())
-    assert outs[0] == outs[1] and outs[0].startswith("WEBVTT")
 
 
 # --- (i) the loader -------------------------------------------------------------

@@ -51,6 +51,12 @@ AVSR_MODULES = ["reazonspeech_tpu_torch.avsr"] + [
     for m in ("configuration_avhubert", "resnet3d", "model", "feature_extraction",
               "processing")] + ["reazonspeech_tpu_torch.convert.hf_avhubert",
                                 "reazonspeech_tpu_torch.serving.avsr"]
+# training: the losses, the train step, the Trainer, manifest batches, and
+# the kernel-forward autograd wrappers' shared Function
+TRAINING_MODULES = ["reazonspeech_tpu_torch.training"] + [
+    "reazonspeech_tpu_torch.training." + m
+    for m in ("losses", "pruned_rnnt", "train_step", "data", "trainer")] + [
+    "reazonspeech_tpu_torch.ops._vjp"]
 
 # each converter run on a published-layout fixture (its lazy imports
 # included: torch, yaml, the port's models), then the modules loaded
@@ -97,7 +103,8 @@ def test_port_imports_no_jax():
     assert int(n_modules) >= 20
     assert leaked == "", f"imported by the port: {leaked}"
     missing = sorted(set(ESPNET_MODULES + DECODE_STEP_MODULES + CONVERT_MODULES
-                         + SERVING_MODULES + PIPELINE_MODULES + AVSR_MODULES)
+                         + SERVING_MODULES + PIPELINE_MODULES + AVSR_MODULES
+                         + TRAINING_MODULES)
                      - set(names.split()))
     assert not missing, f"not imported: {missing}"
 
