@@ -199,11 +199,35 @@ Phases, each of which fails the run (nonzero exit, no result line):
    At 2 blocks of the same width: a checkpoint at step 2, restore_latest
    and 2 more steps against an uninterrupted run to 4 (losses within 1e-2,
    the update within relative L2 1e-2; bit equality logged);
-13. the kernels' JSON line (each kernel's time, its plain twin's, the bound
-   of its work on this card, the launches on its path, and the time of one
-   PyTorch call computing the same function where there is one), then the
-   last line {"ok": true, "device": {"platform": "gpu", "kind": ...,
-   "count": ...}}.
+13. streaming (after training): the cache-based streaming FastConformer
+   (models/fastconformer_streaming.py) on load_model(device="cuda",
+   checkpoint="random") at the full nemo width (24 blocks, d=1024, the
+   serving configuration: each FFN-in is row 4), StreamingConfig() (16-frame
+   chunks of 1.28 s, left context 64, sub-context 16): streaming_encode of
+   the frontend features of 4 x 30 s (23 chunks, 368 encoder frames) timed
+   through the port's RTFxMeter, row 4 launched exactly 2 x 24 x 23 times
+   and nothing else; the stepped loop bit-equal to it; causality at B=1;
+   the encode against the plain twins (relative L2 <= 5e-2, no launch); at
+   fp32 and 2 blocks of the full width, 4 chunks against the port on the
+   CPU (relative L2 <= 1e-4); host ms, CUDA-event ms, device busy ms,
+   device launches and latency a step at B=1 and B=4; one step under
+   utils.profiling.trace, whose Chrome trace must name row 4's kernels.
+   Row 4 is also held to its twin at the streaming shapes (M = 16 and 64
+   rows, D = 1,024, dff = 4,096) among the kernel checks of phase 3;
+14. host-side modules: native/ built by g++ on the machine (edit_distance
+   against the Python one on 200 pairs, wav_batch_load of 8 WAVs against
+   the Python decode); resample of 4 x 30 s at 48 and 44.1 kHz on the card
+   against scipy's resample_poly in float64 (max abs <= 5e-4; device ms,
+   peak memory); the evaluation harness over the nemo model on a local
+   jsonl of 8 WAVs (evaluate(batch_size=4): predictions equal to
+   transcribe_batch's, the printed CER equal to sum(distance)/sum(length));
+   the kernel library loaded from a REAZONSPEECH_TPU_COMPILE_CACHE directory
+   by a subprocess without nvcc, and reazonspeech-serve --compile-cache;
+15. the kernels' JSON line (each kernel's time, its plain twin's, the bound
+   of its work on this card, the launches on its path (row 4's include the
+   streaming encode's), and the time of one PyTorch call computing the same
+   function where there is one), then the last line {"ok": true, "device":
+   {"platform": "gpu", "kind": ..., "count": ...}}.
 
 Every phase logs its seconds ("phase NAME: S s"), and the run ends with
 their table. Imports no JAX. Runs in ~12 minutes on an H100, the build
@@ -360,30 +384,45 @@ def device_ms(fn, calls):
     return sum(ms for _, ms, _ in items) if items else None
 
 
-def device_calls(fn, calls, name):
+def device_calls(fn, calls, name, tries=6):
     """(device kernels named ``*name*`` a call, device span of a call in
     ms): torch.profiler over ``calls`` calls of fn() after a warm-up; the
     span runs from a call's first kernel start to its last kernel end, the
-    median over the calls. (0, None) where the profiler recorded no such
-    kernel."""
+    median over the calls. The tracer drops a kernel record now and then: a
+    profile whose count of such kernels is not a multiple of ``calls`` is
+    taken again, up to ``tries`` times, every other time with the CUDA
+    activity alone (the lighter trace). Where no count is a multiple, the
+    count a call is ceil(most seen / calls) (dropped records only lower a
+    count) and the span None. (0, None) where the profiles recorded device
+    kernels but none named ``name``; (None, None) where no profile recorded
+    any device kernel: not measured."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    for _ in range(3):
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    most, any_kernel = 0, False
+    for i in range(tries):
+        acts = [ProfilerActivity.CUDA] if i % 2 else [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+        with profile(activities=acts) as prof:
             for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
-        ks = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
-                    if e.device_type == DeviceType.CUDA and name in e.name)
+        kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        ks = sorted((e.time_range.start, e.time_range.end) for e in kernels if name in e.name)
+        any_kernel, most = any_kernel or bool(kernels), max(most, len(ks))
         if ks and len(ks) % calls == 0:
             n = len(ks) // calls
             spans = sorted(max(e for _, e in ks[i:i + n]) - ks[i][0] for i in range(0, len(ks), n))
             return n, spans[len(spans) // 2] / 1e3
-    return 0, None
+    if not any_kernel:
+        return None, None
+    return -(-most // calls), None
+
+
+def fmt_n(n):
+    return "not measured" if n is None else str(n)
 
 
 def fmt_ms(ms):
@@ -532,7 +571,28 @@ def kernel_checks(dev):
     rows += espnet_kernel_checks(rand, dev) + step_kernel_checks(rand, dev)
     wide_kernel_checks(rand, dev)
     head_width_checks(rand, dev)
+    streaming_kernel_checks(rand, dev)
     return rows
+
+
+def streaming_kernel_checks(rand, dev):
+    """Row 4 (ln_dense, the FFN-in with swish) at the streaming path's
+    shapes: M = B x chunk_frames = 16 (B=1) and 64 (B=4) rows of the
+    16-frame chunk, D = 1024, dff = 4096 (fewer rows than one 128-row TMA
+    tile: its rows past M read zeros and store nothing). Logged only: row
+    4's JSON entry is its serving-shape check."""
+    import torch
+
+    from reazonspeech_tpu_torch import ops
+
+    f32, d = torch.float32, 1024
+    g, beta = 1.0 + rand(d, scale=0.1, dtype=f32), rand(d, scale=0.1, dtype=f32)
+    w, c = rand(d, 4 * d, scale=0.5 * d ** -0.5), rand(4 * d, scale=0.1, dtype=f32)
+    for b in (1, 4):
+        x = rand(b, 16, d, dtype=f32) + 0.5
+        _compare("ln_dense", ops.ln_dense, ops.ln_dense_plain, (x, g, beta, w, c), "bf16",
+                 iters=50, kwargs=dict(activation="swish"), label=f"streaming FFN-in, M={16 * b}",
+                 flops=flops_ln_dense)
 
 
 def topm_yardstick(row, label, logits, m, blank, strict=True):
@@ -553,8 +613,9 @@ def topm_yardstick(row, label, logits, m, blank, strict=True):
     n, _ = device_calls(lambda: ops.topm_logsoftmax(logits, m, blank), 20, "topm_kernel")
     log(f"topm_logsoftmax ({label}): torch.amax over the same logits (a yardstick, not the same "
         f"function): events ms {row['amax_ms']:.4f}, device ms {fmt_ms(device_ms(amax, 200))}; "
-        f"the kernel's device ms {fmt_ms(row['device_ms'])}; {n} device kernel(s) a call")
-    check(n == 1 or not strict, f"topm_logsoftmax ({label}): {n} device kernels a call, not one")
+        f"the kernel's device ms {fmt_ms(row['device_ms'])}; {fmt_n(n)} device kernel(s) a call")
+    check(n is None or n == 1 or not strict,
+          f"topm_logsoftmax ({label}): {n} device kernels a call, not one")
 
 
 def joint_yardstick(row, label, args, act, strict=True):
@@ -587,9 +648,9 @@ def joint_yardstick(row, label, args, act, strict=True):
     row["span_ms"] = span
     log(f"joint_topm ({label}): the bare fp32 cuBLAS products dec.Wp and z.Wo (a yardstick, "
         f"not the same function): events ms {row['cublas_ms']:.4f}, device ms "
-        f"{fmt_ms(cublas_dev)}; the kernel: {n} device kernels a call, device ms summed "
+        f"{fmt_ms(cublas_dev)}; the kernel: {fmt_n(n)} device kernels a call, device ms summed "
         f"{fmt_ms(row['device_ms'])}, span (first start to last end) {fmt_ms(span)}")
-    check(0 < n <= 2 or not strict,
+    check(n is None or 0 < n <= 2 or not strict,
           f"joint_topm ({label}): {n} device kernels a call, not at most two")
 
 
@@ -928,8 +989,8 @@ def step_kernel_checks(rand, dev):
                        library=lambda: torch.lstm_cell(x, (hp, cp), w_ih_t, w_hh_t, bias, zero))
         n, _ = device_calls(lambda: ops.lstm_cell_step(w_ih, w_hh, bias, x, hp, cp,
                                                        compute_dtype="float32"), 20, "lstm_cell")
-        log(f"lstm_cell_step ({label}, R={r}, H={h}): {n} device kernel(s) a call")
-        check(n == 1, f"lstm_cell_step ({label}): {n} device kernels a call, not one")
+        log(f"lstm_cell_step ({label}, R={r}, H={h}): {fmt_n(n)} device kernel(s) a call")
+        check(n is None or n == 1, f"lstm_cell_step ({label}): {n} device kernels a call, not one")
         rows += [row] if label == "nemo ALSD" else []
     return rows
 
@@ -4250,6 +4311,366 @@ def training_phase(name, dev="cuda", enc_cfg=None, rnnt_cfg=None, seconds=TRAIN_
     log(f"training phase: {time.perf_counter() - t_phase:.1f} s")
 
 
+# --- the streaming encoder and the host-side modules ---------------------------
+
+STREAM_SECONDS, STREAM_B = 30.0, 4  # 4 x 30 s: 3,001 mel frames, 23 chunks of 128
+STREAM_TOL = 5e-2  # kernels vs twins over 24 blocks and 23 chunks of bf16 caches
+CHUNK_MS = 1280.0  # the audio one 16-frame chunk carries
+
+
+def _step_times(fs, params, feats, cfg, scfg, steps=8):
+    """Host ms to issue a streaming step, CUDA-event ms between its start
+    and end on the stream, and its latency (host, to the output on the
+    device, synchronised): medians over ``steps`` steps after two warm-up
+    steps, stepping through ``feats``."""
+    import statistics
+
+    import torch
+
+    mpc = 8 * scfg.chunk_frames
+    state = fs.streaming_init_state(cfg, scfg, feats.shape[0], device=feats.device)
+    host, dev_ms, latency = [], [], []
+    for i in range(steps + 2):
+        chunk = feats[:, i * mpc:(i + 1) * mpc]
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        _, state = fs.streaming_step(params, state, chunk, cfg, scfg)
+        end.record()
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        if i >= 2:
+            host.append((t1 - t0) * 1e3)
+            dev_ms.append(start.elapsed_time(end))
+            latency.append((t2 - t0) * 1e3)
+    return tuple(statistics.median(v) for v in (host, dev_ms, latency)), state
+
+
+def streaming_phase(name):
+    """The port's cache-based streaming FastConformer at the full nemo width
+    (load_model(device="cuda", checkpoint="random"): 24 blocks, d=1024, the
+    serving configuration, so each FFN-in is row 4), StreamingConfig()
+    (16-frame chunks of 1.28 s, left context 64, sub-context 16):
+    streaming_encode of the frontend features of 4 x 30 s (23 chunks, 368
+    encoder frames), timed through the port's RTFxMeter, with row 4
+    launched exactly 2 x 24 x 23 times and no other kernel; the stepped loop
+    bit-equal to it; causality at B=1 (the last chunk's features changed:
+    every earlier output bit-equal); the whole encode with the kernels
+    against their plain twins (no launch) within relative L2 5e-2; at fp32
+    and 2 blocks of the full width, 4 chunks against the port on the CPU
+    within relative L2 1e-4; host ms, CUDA-event ms, device busy ms,
+    launches and latency a step at B=1 and B=4; one step under
+    utils.profiling.trace, whose Chrome trace must name row 4's kernel.
+    Returns (row 4's launches, the model)."""
+    import os
+    import shutil
+    import tempfile
+    from dataclasses import replace
+
+    import torch
+
+    from reazonspeech_tpu_torch import ops
+    from reazonspeech_tpu_torch.frontend.features import log_mel_spectrogram
+    from reazonspeech_tpu_torch.models import fastconformer_streaming as fs
+    from reazonspeech_tpu_torch.models.fastconformer import _layer
+    from reazonspeech_tpu_torch.nemo.asr import load_model
+    from reazonspeech_tpu_torch.training.train_step import tree_map
+    from reazonspeech_tpu_torch.utils import RTFxMeter, trace
+
+    t0 = time.perf_counter()
+    model = load_model(device="cuda", checkpoint="random")
+    cfg, scfg, params = model.enc_cfg, fs.StreamingConfig(), model.params["encoder"]
+    check((cfg.d_model, cfg.num_layers, cfg.num_heads) == (1024, 24, 8), "not the xlarge width")
+    check((cfg.attn_impl, cfg.conv_impl, cfg.lnd_impl) == ("pallas",) * 3,
+          "load_model on CUDA is not the serving configuration")
+    check((scfg.chunk_frames, scfg.left_context, scfg.sub_context) == (16, 64, 16),
+          f"StreamingConfig() is {scfg}")
+    dev = model.device
+    wav = np.stack([speech_like(STREAM_SECONDS, seed=40 + i) for i in range(STREAM_B)])
+    with torch.inference_mode():
+        lens = torch.full((STREAM_B,), wav.shape[1], dtype=torch.int32, device=dev)
+        feats, _ = log_mel_spectrogram(torch.from_numpy(wav).to(dev), lens, model.fe_cfg)
+    mpc = 8 * scfg.chunk_frames
+    n_chunks = feats.shape[1] // mpc
+    check(n_chunks == 23, f"streaming: {n_chunks} chunks of 4 x 30 s, expected 23")
+    fs.streaming_encode(params, feats[:, :2 * mpc], cfg, scfg)  # warm-up: handles, allocator
+    torch.cuda.synchronize()
+    log(f"streaming: load_model and features {time.perf_counter() - t0:.1f} s; {cfg.num_layers} "
+        f"blocks, d={cfg.d_model}, lnd={cfg.lnd_impl}, {cfg.compute_dtype}; {scfg}; features "
+        f"{tuple(feats.shape)}, {n_chunks} chunks")
+
+    # the counted run
+    meter = RTFxMeter()
+    ops.reset_launch_counts()
+    with meter.measure(audio_seconds=STREAM_B * STREAM_SECONDS):
+        enc = fs.streaming_encode(params, feats, cfg, scfg)
+        torch.cuda.synchronize()
+    counts = {k: v for k, v in ops.launch_counts().items() if v}
+    want = 2 * cfg.num_layers * n_chunks
+    log(f"streaming_encode 4 x 30 s on {name}: {meter.summary()} ({meter.rtfx:.2f} audio-s/s); "
+        f"launch counts {counts} (row 4: {want} expected)")
+    check(counts == {"ln_dense": want}, f"streaming: launches {counts}, expected ln_dense {want}")
+    check(tuple(enc.shape) == (STREAM_B, 16 * n_chunks, cfg.d_model) and enc.dtype == torch.float32,
+          f"streaming: output {tuple(enc.shape)} {enc.dtype}")
+    check(bool(torch.isfinite(enc).all()), "streaming: non-finite output")
+
+    # stepping by hand is the same program
+    state = fs.streaming_init_state(cfg, scfg, STREAM_B, device=dev)
+    outs = []
+    for i in range(n_chunks):
+        out, state = fs.streaming_step(params, state, feats[:, i * mpc:(i + 1) * mpc], cfg, scfg)
+        outs.append(out)
+    check(torch.equal(torch.cat(outs, dim=1), enc), "streaming: stepped != streaming_encode")
+    check(state["frames_seen"].tolist() == [16 * n_chunks] * STREAM_B, "streaming: frames_seen")
+    log("streaming: the stepped loop == streaming_encode, bit for bit")
+
+    # causality at B=1: the last of 6 chunks changed
+    f1 = feats[:1, :6 * mpc]
+    f2 = f1.clone()
+    f2[:, -mpc:] += 5.0
+    o1, o2 = (fs.streaming_encode(params, f, cfg, scfg) for f in (f1, f2))
+    check(torch.equal(o1[:, :-16], o2[:, :-16]), "streaming: a future chunk changed a past output")
+    check(not torch.equal(o1[:, -16:], o2[:, -16:]),
+          "streaming: the changed chunk's output did not change")
+    log("streaming causality at B=1: the first 5 chunks' outputs bit-equal, the 6th changed")
+
+    # the whole encode on the plain twins
+    ops.reset_launch_counts()
+    with plain_twins():
+        ref = fs.streaming_encode(params, feats, cfg, scfg)
+    torch.cuda.synchronize()
+    check(sum(ops.launch_counts().values()) == 0, "streaming with the twins launched a kernel")
+    rel = rel_l2(enc, ref)
+    log(f"streaming 4 x 30 s, kernels vs plain twins: relative L2 {rel:.3g} (tol {STREAM_TOL}), "
+        f"max abs {(enc - ref).abs().max().item():.3g}")
+    check(rel <= STREAM_TOL, f"streaming: kernels vs twins relative L2 {rel}")
+
+    # fp32 at 2 blocks of the full width: the card against the CPU
+    small = replace(cfg, num_layers=2, compute_dtype="float32", attn_impl="xla", conv_impl="xla",
+                    lnd_impl="xla")
+    sp = {"subsampling": params["subsampling"], "blocks": _layer(params["blocks"], slice(0, 2))}
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    got = fs.streaming_encode(sp, feats[:2, :4 * mpc], small, scfg)
+    want_cpu = fs.streaming_encode(tree_map(torch.Tensor.cpu, sp), feats[:2, :4 * mpc].cpu(),
+                                   small, scfg)
+    rel = rel_l2(got.cpu(), want_cpu)
+    log(f"streaming fp32, 2 blocks of d={cfg.d_model}, 2 x 4 chunks: the card vs the port on the "
+        f"CPU, relative L2 {rel:.3g} (tol 1e-4)")
+    check(rel <= 1e-4, f"streaming fp32: card vs CPU relative L2 {rel}")
+
+    # a step at B=1 and B=4: host, events, device busy, launches, latency
+    for b in (1, STREAM_B):
+        (host, ev, lat), state = _step_times(fs, params, feats[:b], cfg, scfg)
+        chunk = feats[:b, 10 * mpc:11 * mpc]
+        items = device_items(lambda: fs.streaming_step(params, state, chunk, cfg, scfg), 4)
+        busy = sum(ms for _, ms, _ in items) if items else None
+        n_dev = sum(c for _, _, c in items) if items else None
+        top = ", ".join(f"{k[:40]} {ms:.3f} ms x{c:.0f}"
+                        for k, ms, c in sorted(items, key=lambda x: -x[1])[:5])
+        log(f"streaming step B={b} on {name}: host {host:.2f} ms to issue, CUDA events "
+            f"{ev:.2f} ms, device busy {fmt_ms(busy)} ms, "
+            f"{'not measured' if n_dev is None else f'{n_dev:.0f}'} device launches, latency "
+            f"{lat:.2f} ms against the {CHUNK_MS:.0f} ms chunk it consumes "
+            f"({lat / CHUNK_MS * 100:.2f} %); largest items: {top}")
+        check(lat < CHUNK_MS, f"streaming step B={b}: {lat} ms is slower than real time")
+
+    # one step under utils.profiling.trace
+    base = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(base, exist_ok=True)
+    root = tempfile.mkdtemp(prefix="stream_trace_", dir=base)
+    try:
+        with trace(root) as path:
+            fs.streaming_step(params, state, feats[:STREAM_B, :mpc], cfg, scfg)
+            torch.cuda.synchronize()
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+        kernels = {e["name"] for e in events if e.get("cat") == "kernel"}
+        named = sorted(k for k in kernels if "dense_kernel" in k or "ln_rows" in k)
+        log(f"streaming trace {os.path.basename(path)}: {os.path.getsize(path) / 2 ** 20:.1f} MiB, "
+            f"{len(kernels)} kernel names; row 4's: {named}")
+        check(any("dense_kernel" in k for k in named), "streaming trace: no row-4 kernel named")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return want, model
+
+
+class _TranscribeEvaluator:
+    """Mixin of the smoke's evaluator: the port's nemo transcribe_batch over
+    the rows' WAV paths. ``datasets`` hashes the mapped method with its
+    instance, so the pickled state leaves the model out."""
+
+    def _evaluate(self, example, **kwargs):
+        from reazonspeech_tpu_torch.nemo.asr import audio_from_path, transcribe
+
+        return {"prediction": transcribe(self.model, audio_from_path(example["audio"])).text}
+
+    def _evaluate_batch(self, batch, **kwargs):
+        from reazonspeech_tpu_torch.nemo.asr import audio_from_path, transcribe_batch
+
+        audios = [audio_from_path(p) for p in batch["audio"]]
+        return {"predictions": [r.text for r in transcribe_batch(self.model, audios)]}
+
+    def __getstate__(self):
+        return {k: v for k, v in self.__dict__.items() if k != "model"}
+
+
+def host_modules_phase(name, model):
+    """The host-side modules on the card's machine: native/ built by g++
+    there (edit_distance against the pure-Python one on 200 seeded pairs,
+    wav_batch_load of 8 WAVs written by audio_to_file against the Python
+    decode); resample on the card (4 x 30 s at 48 and 44.1 kHz) against
+    scipy's resample_poly in float64 on the host within 5e-4, its device ms
+    and peak memory; the evaluation harness (datasets and multiprocess
+    import on that machine) over the nemo model: evaluate(dataset=<a local
+    jsonl of 8 WAVs>, batch_size=4), each prediction equal to
+    transcribe_batch on the same 4 rows, the printed CER equal to
+    Σdistance/Σlength; the compile cache: the built kernel library copied
+    into a directory that a subprocess with REAZONSPEECH_TPU_COMPILE_CACHE
+    set there loads without nvcc, and reazonspeech-serve --compile-cache DIR
+    parsed."""
+    import io
+    import os
+    import shutil
+    import tempfile
+    from math import gcd
+
+    import torch
+    from scipy.signal import resample_poly
+
+    from reazonspeech_tpu_torch import native
+    from reazonspeech_tpu_torch.core import text
+    from reazonspeech_tpu_torch.core.audio import audio_from_numpy, audio_from_path, audio_to_file
+    from reazonspeech_tpu_torch.frontend import resample
+    from reazonspeech_tpu_torch.nemo.asr import transcribe_batch
+    from reazonspeech_tpu_torch.ops import _kernels
+    from reazonspeech_tpu_torch.serving import http as port_http
+
+    base = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(base, exist_ok=True)
+    root = tempfile.mkdtemp(prefix="host_modules_", dir=base)
+    try:
+        # native/: built here by g++
+        t0 = time.perf_counter()
+        check(native.available(), "native: no C++ compiler on the card's machine")
+        info = native.build_info()
+        log(f"native: {info['path']} ({info['log'][:40]!r}) in {time.perf_counter() - t0:.2f} s")
+        rng = np.random.default_rng(0)
+        alphabet = list("あいうえおかきくけこさしすせそabc、。 ")
+        for _ in range(200):
+            a, b = ("".join(rng.choice(alphabet, rng.integers(0, 60))) for _ in range(2))
+            check(native.edit_distance(a, b) == text._edit_distance_python(a, b),
+                  f"native edit_distance({a!r}, {b!r})")
+        wavs = []
+        for i in range(8):
+            x = speech_like(float(rng.uniform(2.0, 6.0)), seed=60 + i)
+            wavs.append(os.path.join(root, f"u{i}.wav"))
+            audio_to_file(wavs[-1], audio_from_numpy(x, SR))
+        stride = max(native.wav_info(p)[1] for p in wavs)
+        batch, lengths = native.wav_batch_load(wavs, stride)
+        for i, p in enumerate(wavs):
+            want = np.asarray(audio_from_path(p).waveform, np.float32)
+            check(lengths[i] == len(want) and np.array_equal(batch[i, :lengths[i]], want),
+                  f"native wav_batch_load row {i} differs from the Python decode")
+        log("native: edit_distance == the Python one on 200 pairs; wav_batch_load of 8 WAVs == "
+            "the Python decode")
+
+        # resample on the card
+        for sr in (48000, 44100):
+            host = np.stack([speech_like(30.0 * sr / SR, seed=70 + i)[: 30 * sr]
+                             for i in range(4)])
+            x = torch.from_numpy(host).to(model.device)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            before = torch.cuda.memory_allocated()
+            got = resample(x, sr, SR)
+            torch.cuda.synchronize()
+            peak = (torch.cuda.max_memory_allocated() - before) / 2 ** 20
+            g = gcd(sr, SR)
+            want = resample_poly(host.astype(np.float64), SR // g, sr // g, axis=1)
+            err = float(np.abs(got.cpu().numpy() - want).max())
+            ms = cuda_ms(lambda: resample(x, sr, SR), 10)
+            log(f"resample 4 x 30 s {sr} -> {SR} Hz on {name}: {tuple(got.shape)}, max abs err "
+                f"vs scipy float64 {err:.3g} (tol 5e-4); events ms {ms:.3f}, device ms "
+                f"{fmt_ms(device_ms(lambda: resample(x, sr, SR), 5))}; peak memory above the "
+                f"input {peak:.1f} MiB (input {host.nbytes / 2 ** 20:.1f} MiB)")
+            check(got.shape == want.shape and err <= 5e-4, f"resample {sr}: err {err}")
+
+        # evaluation: BaseEvaluator over the port's nemo model, a local jsonl
+        os.environ.update(HF_DATASETS_CACHE=os.path.join(root, "datasets"),
+                          HF_HOME=os.path.join(root, "hf"), HF_HUB_OFFLINE="1",
+                          HF_DATASETS_OFFLINE="1")
+        from reazonspeech_tpu_torch.evaluation import BaseEvaluator
+
+        class Evaluator(_TranscribeEvaluator, BaseEvaluator):
+            pass
+
+        truths = ["こんにちは", "ありがとうございます", "さようなら", "おはよう",
+                  "今日は晴れです", "音声認識", "東京", "一二三"]
+        manifest = os.path.join(root, "eval.jsonl")
+        with open(manifest, "w", encoding="utf-8") as f:
+            for p, t in zip(wavs, truths):
+                f.write(json.dumps({"audio": p, "text": t}, ensure_ascii=False) + "\n")
+        t0 = time.perf_counter()
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            evaluated = Evaluator(model=model).evaluate(dataset=manifest, batch_size=4)
+        wall = time.perf_counter() - t0
+        preds = list(evaluated["prediction"])
+        direct = [r.text for i in (0, 4)
+                  for r in transcribe_batch(model, [audio_from_path(p) for p in wavs[i:i + 4]])]
+        check(preds == direct, "evaluation: predictions differ from transcribe_batch's")
+        dist, length = list(evaluated["distance"]), list(evaluated["length"])
+        cer_line = [x for x in out.getvalue().splitlines() if x.startswith("CER:")]
+        check(cer_line == [f"CER: {sum(dist) / sum(length) * 100:.2f}%"],
+              f"evaluation: printed {cer_line}, Σdistance/Σlength {sum(dist)}/{sum(length)}")
+        log(f"evaluation: evaluate(jsonl of 8 WAVs, batch_size=4) in {wall:.2f} s: predictions "
+            f"== transcribe_batch's ({[len(p) for p in preds]} characters), {cer_line[0]} == "
+            f"{sum(dist)}/{sum(length)}")
+
+        # the compile cache: the built library loaded from a cache directory
+        cache = os.path.join(root, "cache")
+        so = _kernels.build_info()["path"]
+        os.makedirs(os.path.join(cache, "torch_kernels"))
+        shutil.copy(so, os.path.join(cache, "torch_kernels", os.path.basename(so)))
+        code = ("import json; from reazonspeech_tpu_torch.utils import enable_compile_cache; "
+                "from reazonspeech_tpu_torch.ops import _kernels; d = enable_compile_cache(); "
+                "_kernels.load_library(); print(json.dumps([d, _kernels.build_info()]))")
+        env = dict(os.environ, REAZONSPEECH_TPU_COMPILE_CACHE=cache,
+                   PYTHONPATH=os.path.dirname(os.path.abspath(__file__)))
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,
+                              text=True, timeout=300)
+        check(proc.returncode == 0, f"compile cache subprocess failed: {proc.stderr[-2000:]}")
+        d, info = json.loads(proc.stdout.strip().splitlines()[-1])
+        log(f"compile cache: a process with REAZONSPEECH_TPU_COMPILE_CACHE={cache} loaded "
+            f"{info['path']} ({info['log']!r}) in {time.perf_counter() - t0:.1f} s")
+        check(d == cache and info["log"] == "(cached)" and info["path"].startswith(cache),
+              f"compile cache: {d}, {info}")
+
+        saved = (_kernels.BUILD_DIR, native.BUILD_DIR)
+        served = io.StringIO()
+
+        def refuse(*args, **kwargs):
+            raise SystemExit(0)
+        try:
+            with swapped(port_http, "_load_flavor", lambda fn: refuse):
+                with contextlib.redirect_stdout(served):
+                    try:
+                        port_http.main(["--checkpoint", "random", "--compile-cache", cache])
+                    except SystemExit:
+                        pass
+        finally:
+            _kernels.BUILD_DIR, native.BUILD_DIR = saved
+        check(f"compile cache: {cache}" in served.getvalue(),
+              f"reazonspeech-serve --compile-cache: {served.getvalue()!r}")
+        log("reazonspeech-serve --compile-cache DIR: parsed, the cache enabled before the load")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def main():
     import torch
 
@@ -4301,6 +4722,12 @@ def main():
         avsr_phase(f"{smi}")
     with phase("training_phase"):
         training_phase(f"{smi}")
+    with phase("streaming_phase"):
+        stream_launches, model = streaming_phase(f"{smi}")
+        counts["ln_dense"] += stream_launches  # row 4's launches include the streaming path's
+    with phase("host_modules_phase"):
+        host_modules_phase(f"{smi}", model)
+    del model
     log("phase seconds: " + json.dumps({k: round(v, 1) for k, v in PHASE_SECONDS.items()}))
     for row in rows:
         row["launches"] = counts[row["name"]]

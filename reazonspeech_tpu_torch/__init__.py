@@ -5,10 +5,12 @@ and never ``jax``; it mirrors the reference's layout so every module has a
 counterpart of the same name, and it reads the same native param trees
 (``convert/store.py``).
 
-Ported so far: the nemo-v2, k2 and espnet serving paths and AVSR —
+Ported so far: everything but ``parallel/`` —
 
     frontend/features.py        log-mel (nemo and kaldi presets)
+    frontend/resample.py        polyphase resampling on the input's device
     models/fastconformer.py     FastConformer encoder (nemo-v2)
+    models/fastconformer_streaming.py  cache-based streaming encoder
     models/zipformer.py         Zipformer2 encoder (k2)
     models/rnnt.py              LSTM and stateless predictors + joint
     models/conformer.py         Conformer encoder (espnet)
@@ -23,6 +25,10 @@ Ported so far: the nemo-v2, k2 and espnet serving paths and AVSR —
     convert/                    the checkpoint converters (.nemo, espnet zoo,
                                 icefall + sherpa-onnx, HF AV-HuBERT), the int8
                                 writer, the store
+    training/                   RNN-T/pruned/CTC losses, the train step, the Trainer
+    evaluation/                 the CER harness over HF datasets (copies)
+    native/                     the host-side C++ library (g++ at first use)
+    utils/                      RTFxMeter, torch.profiler traces, the build cache
     core/                       copies of the JAX package's jax-free core
 
 with hand-written Hopper kernels under ``csrc/`` (rel-pos attention, the

@@ -1,9 +1,8 @@
 """Text normalization and character-error-rate utilities.
 
-A copy of ``reazonspeech_tpu/core/text.py`` with the same behaviour, less
-the native fast path of the edit distance: the port does not load
-``reazonspeech_tpu.native`` (its ``native/`` is not ported yet), so the
-pure-Python Wagner-Fischer below always runs.
+A copy of ``reazonspeech_tpu/core/text.py`` with the same behaviour: the
+edit distance takes the port's own ``native`` library where it is available
+(a C++ compiler exists), the pure-Python Wagner-Fischer below otherwise.
 
 The reference ships two *different* normalizers that must both be preserved:
 
@@ -36,12 +35,34 @@ __all__ = [
 # Shared: edit distance
 # ---------------------------------------------------------------------------
 
+_native_edit_distance = None
+
+
+def _load_native():
+    """``native.edit_distance`` where the library is available, else False."""
+    global _native_edit_distance
+    if _native_edit_distance is None:
+        from .. import native
+
+        _native_edit_distance = native.edit_distance if native.available() else False
+    return _native_edit_distance
+
+
 def edit_distance(s: str, t: str) -> int:
     """Levenshtein distance via the Wagner-Fischer algorithm.
 
     Behavior-compatible with both ``editdistance.eval`` (eval side) and the
     reference's pure-Python ``_editdist`` (pkg/espnet-oneseg/src/text.py:16-32).
+    Uses the C++ implementation from the native library when available.
     """
+    native = _load_native()
+    if native:
+        return native(s, t)
+    return _edit_distance_python(s, t)
+
+
+def _edit_distance_python(s: str, t: str) -> int:
+    """The pure-Python Wagner-Fischer."""
     n, m = len(s), len(t)
     if n == 0:
         return m

@@ -116,11 +116,17 @@ def depthwise_conv1d_init(gen, ch, kernel, bias=True, device="cpu"):
     return p
 
 
-def depthwise_conv1d(p, x, dtype=None):
-    """Stride-1 SAME conv with one filter per channel, x: [B, T, C]."""
+def depthwise_conv1d(p, x, dtype=None, padding="SAME"):
+    """Stride-1 conv with one filter per channel, x: [B, T, C]; ``padding``
+    "SAME" (zero-padded, T frames out) or "VALID" (T - K + 1 frames out)."""
     x, w = _cast(x, p["w"], dtype)
     k, _, ch = w.shape
-    y = F.conv1d(_same_pad_time(x.transpose(1, 2), k), w.permute(2, 1, 0), groups=ch)
+    xc = x.transpose(1, 2)
+    if padding == "SAME":
+        xc = _same_pad_time(xc, k)
+    elif padding != "VALID":
+        raise ValueError(f"depthwise_conv1d: padding {padding!r} is not SAME or VALID")
+    y = F.conv1d(xc, w.permute(2, 1, 0), groups=ch)
     return _add_bias(y.transpose(1, 2), p)
 
 

@@ -4,9 +4,10 @@ The ``csrc/*.cu`` sources compile with ``nvcc`` for ``sm_90a``, one
 process per source, all started together, and link into ONE shared
 library with a plain C interface, loaded with ``ctypes`` (no PyTorch
 headers, so the build takes seconds). The library is built at first
-use into ``build/torch_kernels/`` beside the package, named by a hash of the
-sources and flags, so an edited source is rebuilt and an unchanged one is
-loaded as it is. Each C entry launches on the stream it is given and
+use into ``build/torch_kernels/`` beside the package (:data:`BUILD_DIR`;
+``utils.enable_compile_cache`` moves it), named by a hash of the sources
+and flags, so an edited source is rebuilt and an unchanged one is loaded
+as it is. Each C entry launches on the stream it is given and
 returns ``cudaGetLastError()``; :func:`launch` raises when that is not 0,
 and otherwise adds one to the entry's count in :data:`launches` (keyed by
 the kernel's name, the entry without its ``rs_`` prefix).

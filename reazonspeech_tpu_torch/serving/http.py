@@ -31,6 +31,7 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 import numpy as np
 
 from .batcher import MicroBatcher
+from ..utils.compile_cache import enable_compile_cache
 
 __all__ = ["serve", "make_app", "make_avsr_app", "main"]
 
@@ -393,7 +394,9 @@ def main(argv=None):
                          "batch bucket at this request length; continuous: one request of "
                          "it) so first requests find everything built")
     ap.add_argument("--compile-cache", default=None, metavar="DIR",
-                    help="persistent compilation cache directory (not ported yet)")
+                    help="build directory of the CUDA kernel and native libraries (default "
+                         "$REAZONSPEECH_TPU_COMPILE_CACHE, else build/ beside the package): a "
+                         "restart loads them from there instead of compiling them again")
     args = ap.parse_args(argv)
 
     if args.flavor == "avsr" and args.continuous:
@@ -404,9 +407,9 @@ def main(argv=None):
     if args.mesh_data:
         ap.error("--mesh-data is not ported yet: the lane pool runs on one card "
                  "(ROADMAP.md, queue 1 item 10)")
-    if args.compile_cache is not None:
-        ap.error("--compile-cache is not ported yet (ROADMAP.md, queue 1 item 3: "
-                 "utils/compile_cache)")
+    cache_dir = enable_compile_cache(args.compile_cache)
+    if cache_dir:
+        print(f"compile cache: {cache_dir}", flush=True)
     model = _load_flavor(args.flavor, args.checkpoint, args.decoding)
     if args.flavor == "avsr":
         print(f"serving avsr on {args.host}:{args.port} ({model.device})", flush=True)

@@ -6,8 +6,8 @@ the port keeps its own copy, as it does ``core/``). Input is the JSONL
 manifest layout the corpus builder writes: one object per line with
 ``audio`` (a WAV path) and ``transcription``. Batches are static-shape
 (bucketed padding), so the set of shapes a training run sees stays
-bounded. The WAVs load one by one in Python: the C++ thread-pool loader of
-the JAX package's ``native/`` is not ported yet (ROADMAP Queue 1 item 3).
+bounded. The WAVs load through the port's ``native`` thread-pool loader
+where the library is available, one by one in Python otherwise.
 """
 
 import json
@@ -33,10 +33,25 @@ def _bucket(n, step):
 
 
 def _load_wavs(paths):
-    """Decode a list of WAV paths to float32 mono arrays, one by one."""
+    """Decode a list of WAV paths to float32 mono arrays: through the C++
+    thread-pool loader (``native.wav_batch_load``) when the library is
+    available and every file has a PCM WAV header, per-file Python
+    otherwise; a file the native decoder refuses falls back on its own."""
+    from .. import native
     from ..core.audio import audio_from_path
 
-    return [np.asarray(audio_from_path(p).waveform, np.float32) for p in paths]
+    def py_one(path):
+        return np.asarray(audio_from_path(path).waveform, np.float32)
+
+    if not paths or not native.available():
+        return [py_one(p) for p in paths]
+    try:
+        stride = max(native.wav_info(p)[1] for p in paths)
+    except OSError:  # a file that is not a PCM WAV (FLAC, ...)
+        return [py_one(p) for p in paths]
+    batch, lengths = native.wav_batch_load(paths, max(stride, 1))
+    return [batch[i, : lengths[i]] if lengths[i] >= 0 else py_one(p)
+            for i, p in enumerate(paths)]
 
 
 def manifest_batches(

@@ -271,8 +271,10 @@ def _max_err(got, want):
 # and the packed q/k/v), espnet's (B=4, T=549, D=512), M = B·T of 1, 127
 # and 129 (one row, one short of a 128-row tile, one past it), D from 128 to
 # 2,048, segment widths of 64, 192 (a ragged column tile) and up, both
-# activations, and the odd T=33
-LN_SHAPES = [(4, 401, 1024, (4096,), "swish"), (4, 401, 1024, (1024,) * 3, None),
+# activations, the odd T=33, and the streaming encoder's FFN-in (M = 16 and
+# 64 rows of a 16-frame chunk)
+LN_SHAPES = [(1, 16, 1024, (4096,), "swish"), (4, 16, 1024, (4096,), "swish"),
+             (4, 401, 1024, (4096,), "swish"), (4, 401, 1024, (1024,) * 3, None),
              (4, 549, 512, (2048,), "swish"), (4, 549, 512, (512,) * 3, None),
              (1, 1, 128, (64,), "swish"), (1, 1, 1024, (1024,) * 3, None),
              (1, 127, 512, (192,), None), (1, 127, 2048, (4096,), "swish"),

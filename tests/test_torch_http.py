@@ -255,7 +255,6 @@ def test_main_loads_on_the_gpu_only(monkeypatch):
 @pytest.mark.parametrize("argv,item", [
     (["--flavor", "avsr", "--continuous"], "not supported for --flavor avsr"),
     (["--mesh-data", "2", "--continuous"], "queue 1 item 10"),
-    (["--compile-cache", "/nonexistent"], "queue 1 item 3"),
 ])
 def test_main_refuses_unported_flags(monkeypatch, capsys, argv, item):
     """Each refused flag exits with an argparse error naming its ROADMAP
@@ -267,3 +266,26 @@ def test_main_refuses_unported_flags(monkeypatch, capsys, argv, item):
         port_http.main(["--checkpoint", "random"] + argv)
     assert e.value.code == 2
     assert item in capsys.readouterr().err
+
+
+def test_main_compile_cache_enables_cache(monkeypatch, capsys, tmp_path):
+    """--compile-cache DIR points the kernel and native build directories
+    under DIR and prints it before the flavor loads."""
+    from reazonspeech_tpu_torch import native
+    from reazonspeech_tpu_torch.ops import _kernels
+
+    monkeypatch.setattr(_kernels, "BUILD_DIR", _kernels.BUILD_DIR)
+    monkeypatch.setattr(native, "BUILD_DIR", native.BUILD_DIR)
+    seen = []
+
+    def load(*a, **k):
+        seen.append((_kernels.BUILD_DIR, native.BUILD_DIR, capsys.readouterr().out))
+        raise SystemExit(0)
+
+    monkeypatch.setattr(port_http, "_load_flavor", load)
+    cache = tmp_path / "cc"
+    with pytest.raises(SystemExit):
+        port_http.main(["--checkpoint", "random", "--compile-cache", str(cache)])
+    assert seen == [(cache / "torch_kernels", cache / "torch_native",
+                     f"compile cache: {cache}\n")]
+    assert cache.is_dir()

@@ -57,6 +57,12 @@ TRAINING_MODULES = ["reazonspeech_tpu_torch.training"] + [
     "reazonspeech_tpu_torch.training." + m
     for m in ("losses", "pruned_rnnt", "train_step", "data", "trainer")] + [
     "reazonspeech_tpu_torch.ops._vjp"]
+# streaming, and the host-side modules: native/, evaluation, on-device
+# resampling, profiling and the compile cache
+HOST_MODULES = ["reazonspeech_tpu_torch." + m for m in (
+    "models.fastconformer_streaming", "native", "evaluation", "evaluation.base",
+    "evaluation.utils", "evaluation.mesh", "frontend.resample", "utils", "utils.profiling",
+    "utils.compile_cache")]
 
 # each converter run on a published-layout fixture (its lazy imports
 # included: torch, yaml, the port's models), then the modules loaded
@@ -104,7 +110,7 @@ def test_port_imports_no_jax():
     assert leaked == "", f"imported by the port: {leaked}"
     missing = sorted(set(ESPNET_MODULES + DECODE_STEP_MODULES + CONVERT_MODULES
                          + SERVING_MODULES + PIPELINE_MODULES + AVSR_MODULES
-                         + TRAINING_MODULES)
+                         + TRAINING_MODULES + HOST_MODULES)
                      - set(names.split()))
     assert not missing, f"not imported: {missing}"
 
