@@ -223,11 +223,28 @@ Phases, each of which fails the run (nonzero exit, no result line):
    transcribe_batch's, the printed CER equal to sum(distance)/sum(length));
    the kernel library loaded from a REAZONSPEECH_TPU_COMPILE_CACHE directory
    by a subprocess without nvcc, and reazonspeech-serve --compile-cache;
-15. the kernels' JSON line (each kernel's time, its plain twin's, the bound
+15. parallel: meshes whose entries name the card (cuda:(i % cards); on one
+   card every entry is cuda:0, so placement and correctness, not scaling),
+   nemo at the full xlarge serving width: DataParallelDecoder over 2
+   entries on 4 x 10 s (each shard's rows bit-equal to a single-device
+   decode_batch of them; wall s and audio-s/s beside one device's),
+   ContinuousBatcher(mesh=2 entries) on 4 x 3 s against a MicroBatcher (or
+   an fp32 near-tie), pipeline_parallel_encode at S=2, M=4 on 4 x 30 s
+   against fastconformer_encode (relative L2 <= 5e-2; row 4 launched
+   2 x 24 x M times; the bubble share), sequence_parallel_encode over 2
+   entries in fp32 against the unsplit plain encode (relative L2 <= 1e-4),
+   at the training configuration one pipeline step's loss (within 1e-5) and
+   gradients (relative L2 <= 2.21e-3) against the single-device step's and
+   Trainer(pipeline=) and Trainer(mesh=2x2) steps' losses against the
+   single-device Trainer's (1e-5, rtol 1e-4), and rows 4, 5 and 7 at the
+   tensor-parallel shapes (N = 2,048; q|k|v and attention of 4 heads)
+   against their twins; each sub-step's seconds and each card's peak memory;
+16. the kernels' JSON line (each kernel's time, its plain twin's, the bound
    of its work on this card, the launches on its path (row 4's include the
-   streaming encode's), and the time of one PyTorch call computing the same
-   function where there is one), then the last line {"ok": true, "device":
-   {"platform": "gpu", "kind": ..., "count": ...}}.
+   streaming encode's; the tensor-parallel rows' are the dp x tp step's),
+   and the time of one PyTorch call computing the same function where there
+   is one), then the last line {"ok": true, "device": {"platform": "gpu",
+   "kind": ..., "count": ...}}.
 
 Every phase logs its seconds ("phase NAME: S s"), and the run ends with
 their table. Imports no JAX. Runs in ~12 minutes on an H100, the build
@@ -262,6 +279,10 @@ REPLACES = {
     "joint_topm": "reazonspeech_tpu/ops/beam_topk.py:152",
     "lstm_cell_step": "reazonspeech_tpu/ops/lstm_step.py:67",
 }
+# rows 4, 5 and 7 at the tensor-parallel shapes (parallel_phase): the same kernels
+TP_ROWS = {"ln_dense_tp": "ln_dense", "ln_dense_add_tp": "ln_dense_add",
+           "relpos_attention_fused_packed_tp": "relpos_attention_fused_packed"}
+REPLACES.update({tp: REPLACES[k] for tp, k in TP_ROWS.items()})
 SOURCES = {
     "relpos_attention_fused": "reazonspeech_tpu_torch/csrc/relpos_attention.cu",
     "fused_conv_module": "reazonspeech_tpu_torch/csrc/conformer_conv.cu",
@@ -280,6 +301,7 @@ SOURCES = {
     "joint_topm": "reazonspeech_tpu_torch/csrc/joint_topm.cu",
     "lstm_cell_step": "reazonspeech_tpu_torch/csrc/lstm_step.cu",
 }
+SOURCES.update({tp: SOURCES[k] for tp, k in TP_ROWS.items()})
 # the kernels each configuration's encoder and decoder launch
 SERVING_KERNELS = ("ln_dense", "ln_dense_add", "relpos_attention_fused_packed",
                    "fused_conv_module_ln", "add_ln", "topm_logsoftmax")
@@ -4120,9 +4142,10 @@ def train_wrapper_checks(enc_cfg, dev, t_fused):
         check(grad <= 5e-2, f"{what}: gradient relative L2 {grad}")
 
 
-def train_grads(params, batch, fe_cfg, enc_cfg, rnnt_cfg, dev):
+def train_grads(params, batch, fe_cfg, enc_cfg, rnnt_cfg, dev, **loss_kw):
     """(loss, flat gradients, launches in the forward, launches in the
-    backward) of compute_loss(loss="full") on trainable copies of params."""
+    backward) of compute_loss(loss="full", **loss_kw) on trainable copies
+    of params."""
     import torch
 
     from reazonspeech_tpu_torch import ops
@@ -4132,7 +4155,7 @@ def train_grads(params, batch, fe_cfg, enc_cfg, rnnt_cfg, dev):
     leaves = tree_leaves(p)
     tb = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
     ops.reset_launch_counts()
-    loss = compute_loss(p, tb, fe_cfg, enc_cfg, rnnt_cfg)
+    loss = compute_loss(p, tb, fe_cfg, enc_cfg, rnnt_cfg, **loss_kw)
     torch.cuda.synchronize()
     fwd = ops.launch_counts()
     ops.reset_launch_counts()
@@ -4671,6 +4694,344 @@ def host_modules_phase(name, model):
         shutil.rmtree(root, ignore_errors=True)
 
 
+# --- parallelism over a single-process mesh -------------------------------------
+
+PARALLEL_DP_SECONDS, PARALLEL_PP_SECONDS = 10.0, 30.0
+PP_STAGES, PP_MICRO = 2, 4
+PIPE_TOL = 5e-2  # relative L2: bf16 kernels and cuBLAS products at 1 row a microbatch vs 4
+
+
+def mesh_entries(n, dev="cuda"):
+    """``n`` mesh entries over the visible cards, ``cuda:(i % cards)``
+    (``dev="cpu"``: n CPU entries, for a rehearsal)."""
+    import torch
+
+    if torch.device(dev).type == "cpu":
+        return [torch.device("cpu")] * n
+    cards = torch.cuda.device_count()
+    return [torch.device("cuda", i % cards) for i in range(n)]
+
+
+def entry_peaks(devices):
+    """{device: peak GiB allocated since the last reset} of each distinct card."""
+    import torch
+
+    return {str(d): round(torch.cuda.max_memory_allocated(d) / 2 ** 30, 2)
+            for d in dict.fromkeys(devices)}
+
+
+def reset_peaks(devices):
+    import torch
+
+    for d in dict.fromkeys(devices):
+        torch.cuda.reset_peak_memory_stats(d)
+
+
+def parallel_tp_checks(dev, b, t):
+    """Rows 4, 5 and 7 at the shapes the dp x tp step gives them on a model
+    entry of a 2 x 2 mesh (B = b rows of a data shard, T = t): row 4 on its
+    column shard of the FFN-in (N = 2,048 of 4,096), row 5 with the packed
+    q|k|v of 4 of the 8 heads (three [1024, 512] segments), row 7 on 4 heads."""
+    import torch
+
+    from reazonspeech_tpu_torch import ops
+
+    gen = torch.Generator().manual_seed(700)
+    f32, bf16 = torch.float32, torch.bfloat16
+
+    def rand(*shape, scale=1.0, dtype=bf16):
+        return (torch.randn(shape, generator=gen) * scale).to(device=dev, dtype=dtype)
+
+    d, h, n = 1024, 4, 2
+    lengths = torch.tensor([t, t * 11 // 15][:b], dtype=torch.int32, device=dev)
+    x = rand(b, t, d, dtype=f32) + 0.5
+    g, beta = 1.0 + rand(d, scale=0.1, dtype=f32), rand(d, scale=0.1, dtype=f32)
+    rows = [_compare("ln_dense_tp", ops.ln_dense, ops.ln_dense_plain,
+                     (x, g, beta, rand(d, 4 * d // n, scale=0.5 * d ** -0.5),
+                      rand(4 * d // n, scale=0.1, dtype=f32)), "bf16", iters=20,
+                     kwargs=dict(activation="swish"), label=f"FFN-in column shard, N={4 * d // n}",
+                     flops=flops_ln_dense)]
+    w_qkv = tuple(rand(d, d // n, scale=0.5 * d ** -0.5) for _ in range(3))
+    c_qkv = tuple(rand(d // n, scale=0.1, dtype=f32) for _ in range(3))
+    rows.append(_compare("ln_dense_add_tp", ops.ln_dense_add, ops.ln_dense_add_plain,
+                         (x, rand(b, t, d), g, beta, w_qkv, c_qkv), ("bf16", 1e-5), iters=20,
+                         kwargs=dict(scale=0.5), label=f"q|k|v of {h} heads",
+                         flops=lambda a, o: flops_ln_dense(a, o, w_at=4)))
+    qkv = rand(b, t, 3 * d // n, scale=0.5)
+    pos = rand(2 * t - 1, h, d // 8, scale=0.5)
+    bu, bv = rand(h, d // 8, scale=0.1, dtype=f32), rand(h, d // 8, scale=0.1, dtype=f32)
+    rows.append(_compare("relpos_attention_fused_packed_tp", ops.relpos_attention_fused_packed,
+                         ops.relpos_attention_fused_packed_plain, (qkv, pos, bu, bv, lengths, h),
+                         0.03, iters=20, label=f"{h} heads", flops=flops_relpos))
+    heads_first = lambda y: y.reshape(b, t, h, d // 8).transpose(1, 2)  # noqa: E731
+    q = heads_first(qkv[..., :d // n])
+    sdpa_yardstick(rows[-1], f"{h} heads", q + bu.to(bf16)[:, None], q + bv.to(bf16)[:, None],
+                   heads_first(qkv[..., d // n:2 * d // n]), heads_first(qkv[..., 2 * d // n:]),
+                   pos, lengths)
+    return rows
+
+
+def parallel_phase(name, dev="cuda"):
+    """Parallelism over a single-process mesh whose entries name the card
+    (``cuda:(i % cards)``; on one card every entry is ``cuda:0``, so these
+    runs check correctness and placement, not scaling), with nemo at the
+    full xlarge width and depth: DataParallelDecoder over 2 entries on
+    4 x 10 s, each shard's rows bit-equal to a single-device decode_batch of
+    them; ContinuousBatcher(mesh=2 entries) on 4 x 3 s against a
+    MicroBatcher; pipeline_parallel_encode at S=2, M=4 on 4 x 30 s against
+    fastconformer_encode (row 4 launched 2 x 24 x M times); one pipeline
+    train step's loss and gradients against the single-device step's; one
+    Trainer(mesh=2x2) step's loss against the single-device Trainer's;
+    sequence_parallel_encode over 2 entries in fp32 against the unsplit
+    plain encode; rows 4, 5 and 7 at the tensor-parallel shapes against
+    their twins. Returns (the tensor-parallel rows, their launches in the
+    dp x tp step)."""
+    import gc
+    from dataclasses import replace
+
+    import torch
+
+    from reazonspeech_tpu_torch import ops
+    from reazonspeech_tpu_torch.frontend.features import log_mel_spectrogram, nemo_frontend_config
+    from reazonspeech_tpu_torch.models.fastconformer import fastconformer_encode
+    from reazonspeech_tpu_torch.nemo.asr import load_model as nemo_load
+    from reazonspeech_tpu_torch.parallel import (
+        DataParallelDecoder, PipelineSpec, make_mesh, make_pipeline_mesh,
+        pipeline_parallel_encode, sequence_parallel_encode,
+    )
+    from reazonspeech_tpu_torch.parallel.pipeline import shard_params_pipeline
+    from reazonspeech_tpu_torch.serving import ContinuousBatcher, MicroBatcher
+    from reazonspeech_tpu_torch.training import Trainer, TrainerConfig
+
+    steps = {}
+    t_phase = time.perf_counter()
+    two, four = mesh_entries(2, dev), mesh_entries(4, dev)
+    cards = torch.cuda.device_count()
+    log(f"parallel on {name}: {cards} card(s); 2 entries {[str(d) for d in two]}, 4 entries "
+        f"{[str(d) for d in four]}" + ("; every entry shares one card: these runs check "
+                                       "correctness and placement, not scaling"
+                                       if len(set(four)) < 4 else ""))
+    model = nemo_load(device=dev, checkpoint="random")
+    cfg = model.enc_cfg
+    check((cfg.num_layers, cfg.d_model, cfg.num_heads, cfg.lnd_impl, cfg.attn_impl,
+           cfg.conv_impl) == (24, 1024, 8, "pallas", "pallas", "pallas"),
+          "parallel: nemo is not the xlarge serving configuration")
+
+    # 1. data-parallel decode: 4 x 10 s over 2 entries
+    t0 = time.perf_counter()
+    n = int(PARALLEL_DP_SECONDS * SR)
+    padded = -(-n // model.bucket_samples) * model.bucket_samples
+    buf = np.zeros((4, padded), np.float32)
+    lens = np.full(4, n, np.int32)
+    for i in range(4):
+        buf[i, :n] = speech_like(PARALLEL_DP_SECONDS, seed=600 + i)
+    # one device first: the 4-row call, then each shard's 2 rows (the batch
+    # shapes the shards run, so the mesh's first call meets no new shape)
+    t1 = time.perf_counter()
+    model.decode_batch(buf, lens)
+    single_wall = time.perf_counter() - t1
+    wants, shard_walls = [], []
+    for d in range(2):
+        t1 = time.perf_counter()
+        wants.append(model.decode_batch(buf[2 * d:2 * d + 2], lens[2 * d:2 * d + 2]))
+        shard_walls.append(time.perf_counter() - t1)
+    dp = DataParallelDecoder(model, make_mesh(2, devices=two))
+    try:
+        reset_peaks(two)
+        ops.reset_launch_counts()
+        t1 = time.perf_counter()
+        got = dp.decode_batch(buf, lens)
+        torch.cuda.synchronize()
+        dp_first = time.perf_counter() - t1
+        dp_counts = ops.launch_counts()
+        dp_peak = entry_peaks(two)
+        t1 = time.perf_counter()
+        dp.decode_batch(buf, lens)
+        dp_wall = time.perf_counter() - t1
+    finally:
+        dp.close()
+    for d, want in enumerate(wants):
+        for i, (g, w) in enumerate(zip(got, want)):
+            check(np.array_equal(g[2 * d:2 * d + 2], w),
+                  f"parallel: shard {d}'s output {i} differs from a single-device decode_batch "
+                  "of its rows")
+    check(all(dp_counts[k] > 0 for k in SERVING_KERNELS),
+          f"parallel: the data-parallel decode did not launch every serving kernel {dp_counts}")
+    audio_s = 4 * PARALLEL_DP_SECONDS
+    log(f"parallel DataParallelDecoder 2 entries, 4 x {PARALLEL_DP_SECONDS:.0f} s on {name}: "
+        f"{dp_wall:.3f} s wall ({audio_s / dp_wall:.2f} audio-s/s; the first call on the "
+        f"entries' fresh threads and streams, at shapes already run, {dp_first:.3f} s) against "
+        f"one device's 4-row decode_batch "
+        f"{single_wall:.3f} s ({audio_s / single_wall:.2f} audio-s/s) and its 2-row decodes "
+        f"of each shard's rows {[round(w, 3) for w in shard_walls]} s; emissions "
+        f"{got[2].tolist()}; each shard's "
+        f"rows == a single-device decode_batch of them, bit for bit; launches "
+        f"{ {k: dp_counts[k] for k in SERVING_KERNELS} }; peak GiB {dp_peak}")
+    steps["data-parallel decode"] = time.perf_counter() - t0
+
+    # 2. the continuous executor's lane pool over 2 entries: 4 x 3 s
+    t0 = time.perf_counter()
+    pool_kw = dict(n_lanes=4, frames_per_segment=32, max_seconds=4.0, max_encode_batch=4,
+                   mesh=make_mesh(2, devices=two))
+    wavs = [speech_like(3.0, seed=620 + i) for i in range(4)]
+    pool = ContinuousBatcher(model, **pool_kw)
+    try:
+        ops.reset_launch_counts()
+        t1 = time.perf_counter()
+        answers = [f.result(timeout=600) for f in [pool.submit(w) for w in wavs]]
+        pool_wall = time.perf_counter() - t1
+        pool_counts = ops.launch_counts()
+        groups = [(str(g.device), g.lo, g.hi) for g in pool._groups]
+    finally:
+        pool.close()
+    micro = MicroBatcher(model, fixed_shape=(pool.max_encode_batch, pool.max_samples))
+    try:
+        static = [f.result(timeout=600) for f in [micro.submit(w) for w in wavs]]
+    finally:
+        micro.close()
+    near = 0
+    for i, (w, a, st) in enumerate(zip(wavs, answers, static)):
+        if tuple(a) != tuple(st):
+            lone = serving_near_tie(f"parallel ContinuousBatcher request {i}", "alsd", model,
+                                    pool_kw, w, st)
+            check(tuple(lone) == tuple(a), f"parallel: request {i} decodes otherwise alone")
+            near += 1
+    check(all(pool_counts[k] > 0 for k in SERVING_KERNELS),
+          f"parallel: the mesh pool did not launch every serving kernel {pool_counts}")
+    log(f"parallel ContinuousBatcher(mesh=2 entries) on {name}: lane groups {groups}; 4 x 3 s "
+        f"in {pool_wall:.3f} s; answers == the MicroBatcher's: {4 - near} of 4 (the rest fp32 "
+        f"near-ties)")
+    steps["continuous over the mesh"] = time.perf_counter() - t0
+
+    # 3. the GPipe encoder: S=2, M=4 on 4 x 30 s
+    t0 = time.perf_counter()
+    n = int(PARALLEL_PP_SECONDS * SR)
+    wav = torch.from_numpy(np.stack([speech_like(PARALLEL_PP_SECONDS, seed=640 + i)
+                                     for i in range(4)])).to(dev)
+    with torch.inference_mode():
+        feats, flens = log_mel_spectrogram(wav, torch.full((4,), n, device=dev), model.fe_cfg)
+        pmesh = make_pipeline_mesh(PP_STAGES, devices=two)
+        staged = shard_params_pipeline(model.params["encoder"], pmesh)
+        ref, _ = fastconformer_encode(model.params["encoder"], feats, flens, cfg)
+        reset_peaks(two)
+        ops.reset_launch_counts()
+        piped, _ = pipeline_parallel_encode(staged, feats, flens, cfg, pmesh, n_micro=PP_MICRO)
+        torch.cuda.synchronize()
+        pp_counts = ops.launch_counts()
+        pp_peak = entry_peaks(two)
+        pp_ms = cuda_ms(lambda: pipeline_parallel_encode(staged, feats, flens, cfg, pmesh,
+                                                         n_micro=PP_MICRO), 3, warmup=1)
+        enc_ms = cuda_ms(lambda: fastconformer_encode(model.params["encoder"], feats, flens, cfg),
+                         3, warmup=1)
+    err = rel_l2(piped, ref)
+    bubble = (PP_STAGES - 1) / (PP_MICRO + PP_STAGES - 1)
+    log(f"parallel pipeline_parallel_encode S={PP_STAGES}, M={PP_MICRO}, 4 x "
+        f"{PARALLEL_PP_SECONDS:.0f} s (T={ref.shape[1]}) on {name}: relative L2 {err:.3g} against "
+        f"fastconformer_encode (tol {PIPE_TOL}); row 4 launched {pp_counts['ln_dense']} times "
+        f"(2 x {cfg.num_layers} x M = {2 * cfg.num_layers * PP_MICRO}); launches "
+        f"{ {k: pp_counts[k] for k in PACKED_ROUTE_KERNELS + ('fused_conv_module_ln',)} }; "
+        f"CUDA-event ms {pp_ms:.2f} against the single-device encode {enc_ms:.2f}; bubble share "
+        f"(S-1)/(M+S-1) = {bubble:.3f}; peak GiB {pp_peak}")
+    check(pp_counts["ln_dense"] == 2 * cfg.num_layers * PP_MICRO,
+          f"parallel: row 4 launched {pp_counts['ln_dense']} times in the pipeline")
+    check(all(pp_counts[k] > 0 for k in PACKED_ROUTE_KERNELS + ("fused_conv_module_ln",)),
+          f"parallel: the pipeline did not launch rows 2 and 4-7 {pp_counts}")
+    check(err <= PIPE_TOL, f"parallel: pipeline encode relative L2 {err}")
+    del ref, piped, staged, feats, wav
+    steps["pipeline encode"] = time.perf_counter() - t0
+
+    # 4. sequence parallel: 1 x 30 s over 2 entries, fp32, the plain impls
+    t0 = time.perf_counter()
+    plain = replace(cfg, compute_dtype="float32", attn_impl="xla", conv_impl="xla",
+                    lnd_impl="xla")
+    with torch.inference_mode():
+        wav = torch.from_numpy(speech_like(PARALLEL_PP_SECONDS, seed=650)[None]).to(dev)
+        feats, flens = log_mel_spectrogram(wav, torch.tensor([n], device=dev), model.fe_cfg)
+        feats = torch.nn.functional.pad(feats, (0, 0, 0, feats.shape[1] % 2))  # frames even
+        ops.reset_launch_counts()
+        sp, _ = sequence_parallel_encode(model.params["encoder"], feats, flens, plain,
+                                         make_mesh(1, 2, devices=two))
+        sp_counts = sum(ops.launch_counts().values())
+        whole, _ = fastconformer_encode(model.params["encoder"], feats, flens, plain)
+    err = rel_l2(sp, whole)
+    log(f"parallel sequence_parallel_encode over 2 entries, 1 x {PARALLEL_PP_SECONDS:.0f} s "
+        f"(T={whole.shape[1]}, shards of {-(-whole.shape[1] // 2)} frames), fp32 plain impls on "
+        f"{name}: relative L2 {err:.3g} against the unsplit plain encode (tol 1e-4); kernel "
+        f"launches {sp_counts}")
+    check(err <= 1e-4 and sp_counts == 0, f"parallel: sequence-parallel encode {err}, {sp_counts}")
+    del model, sp, whole, feats, wav
+    gc.collect()
+    torch.cuda.empty_cache()
+    steps["sequence-parallel encode"] = time.perf_counter() - t0
+
+    # 5. training: the pipeline step and the dp x tp Trainer step
+    t0 = time.perf_counter()
+    enc_cfg, rnnt_cfg = train_configs()
+    fe_cfg = nemo_frontend_config()
+    params = train_params(0, enc_cfg, rnnt_cfg, dev)
+    batch = train_batch(rnnt_cfg)
+    loss_1, g_1, _, _ = train_grads(params, batch, fe_cfg, enc_cfg, rnnt_cfg, dev)
+    spec = PipelineSpec(mesh=make_pipeline_mesh(PP_STAGES, devices=two), n_micro=2)
+    loss_p, g_p, fwd_p, _ = train_grads(params, batch, fe_cfg, enc_cfg, rnnt_cfg, dev,
+                                        pipeline=spec)
+    dl = abs(loss_p.item() - loss_1.item()) / abs(loss_1.item())
+    dg = rel_l2(g_p, g_1)
+    del g_1, g_p
+    gc.collect()
+    log(f"parallel pipeline training step (S={PP_STAGES}, M=2, {TRAIN_B} x {TRAIN_SECONDS:.0f} s, "
+        f"xlarge, remat) on {name}: loss {loss_p.item():.6f} against the single-device "
+        f"{loss_1.item():.6f} (relative {dl:.3g}, tol 1e-5); gradients relative L2 {dg:.3g} "
+        f"(tol 2.21e-3); forward launches { {k: fwd_p[k] for k in TRAIN_KERNELS} }")
+    check(dl <= 1e-5 and dg <= 2.21e-3, f"parallel: pipeline training loss {dl}, grads {dg}")
+    check(all(fwd_p[k] > 0 for k in TRAIN_KERNELS), f"parallel: pipeline training {fwd_p}")
+    steps["pipeline training"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    tcfg = TrainerConfig(warmup_steps=1, decay_steps=100, peak_lr=1e-4, log_every=1)
+    single = Trainer(fe_cfg, enc_cfg, rnnt_cfg, tcfg, device=dev).init(params)
+    loss_s = single.fit([batch], max_steps=1)[0]["loss"]
+    del single
+    gc.collect()
+    piped_tr = Trainer(fe_cfg, enc_cfg, rnnt_cfg, tcfg, pipeline=spec).init(params)
+    loss_pt = piped_tr.fit([batch], max_steps=1)[0]["loss"]
+    del piped_tr
+    gc.collect()
+    mesh = make_mesh(2, 2, devices=four)
+    reset_peaks(four)
+    tp = Trainer(fe_cfg, enc_cfg, rnnt_cfg, tcfg, mesh=mesh).init(params)
+    ops.reset_launch_counts()
+    t1 = time.perf_counter()
+    hist = tp.fit([batch], max_steps=1)
+    torch.cuda.synchronize()
+    tp_wall = time.perf_counter() - t1
+    tp_counts = ops.launch_counts()
+    tp_peak = entry_peaks(four)
+    del tp, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    loss_tp = hist[0]["loss"]
+    rel = abs(loss_tp - loss_s) / abs(loss_s)
+    log(f"parallel Trainer(pipeline=S{PP_STAGES}) step: loss {loss_pt:.6f}; Trainer(mesh=2x2) "
+        f"step on {name}: loss {loss_tp:.6f} against the single-device Trainer's {loss_s:.6f} "
+        f"(relative {rel:.3g}, rtol 1e-4), grad norm {hist[0]['grad_norm']:.4f}, {tp_wall:.2f} s "
+        f"(a first call); launches (forward and remat's recompute, model shards at N=2,048 and "
+        f"4 heads) { {k: tp_counts[k] for k in TRAIN_KERNELS} }; peak GiB {tp_peak}")
+    check(abs(loss_pt - loss_s) <= 1e-5 * abs(loss_s),
+          f"parallel: Trainer(pipeline=) loss {loss_pt} against {loss_s}")
+    check(rel <= 1e-4 and np.isfinite(hist[0]["grad_norm"]), f"parallel: dp x tp loss {rel}")
+    check(all(tp_counts[k] > 0 for k in TRAIN_KERNELS), f"parallel: dp x tp launches {tp_counts}")
+    steps["dp x tp training"] = time.perf_counter() - t0
+
+    # 6. rows 4, 5 and 7 at the tensor-parallel shapes (B=2 rows of a data shard, T=188)
+    t0 = time.perf_counter()
+    rows = parallel_tp_checks(torch.device(dev), TRAIN_B // 2, int(TRAIN_SECONDS * 100) // 8 + 1)
+    steps["tensor-parallel kernel checks"] = time.perf_counter() - t0
+    counts = {tp: tp_counts[k] for tp, k in TP_ROWS.items()}
+    log("parallel sub-step seconds: " + json.dumps({k: round(v, 2) for k, v in steps.items()})
+        + f"; phase {time.perf_counter() - t_phase:.1f} s")
+    return rows, counts
+
+
 def main():
     import torch
 
@@ -4728,6 +5089,10 @@ def main():
     with phase("host_modules_phase"):
         host_modules_phase(f"{smi}", model)
     del model
+    with phase("parallel_phase"):
+        tp_rows, tp_counts = parallel_phase(f"{smi}")
+    rows += tp_rows
+    counts.update(tp_counts)  # the tensor-parallel rows' launches: the dp x tp step's
     log("phase seconds: " + json.dumps({k: round(v, 1) for k, v in PHASE_SECONDS.items()}))
     for row in rows:
         row["launches"] = counts[row["name"]]

@@ -161,15 +161,34 @@ class EspnetTorchModel:
     def ids_to_text(self, ids):
         return self.tokenizer.ids_to_text(ids)
 
+    def decode_batch_fn(self):
+        """The per-shard pipeline ``(params, waveform, lengths) -> (tokens,
+        frames, counts, enc_lengths, saturated)`` on tensors of one device,
+        closing over the configs: what ``parallel.serving.DataParallelDecoder``
+        runs on each mesh entry. The CTC matrix is not returned."""
+        fe_cfg, enc_cfg, rnnt_cfg, decode_cfg = (
+            self.fe_cfg, self.enc_cfg, self.rnnt_cfg, self.decode_cfg)
+
+        def fn(params, waveform, lengths):
+            return encode_ctc_decode(params, waveform, lengths, fe_cfg, enc_cfg, rnnt_cfg,
+                                     decode_cfg)[1:]
+
+        return fn
+
+    def _host_decode_flags(self, outs):
+        """Host-side post of :meth:`decode_batch_fn`'s outputs (numpy): warn
+        on the elements whose pop budget saturated (the 5th output)."""
+        if len(outs) > 4:
+            _warn_saturated(outs[4])
+
     @torch.inference_mode()
     def decode_batch(self, waveforms: np.ndarray, lengths: np.ndarray):
         """Padded-batch transducer decode: returns host numpy (tokens,
         frames, counts, enc_lengths)."""
-        _, tokens, frames, counts, elens, saturated = encode_ctc_decode(
-            self.params, *self._to_device(waveforms, lengths), self.fe_cfg, self.enc_cfg,
-            self.rnnt_cfg, self.decode_cfg)
-        _warn_saturated(saturated.cpu().numpy())
-        return tuple(x.cpu().numpy() for x in (tokens, frames, counts, elens))
+        outs = self.decode_batch_fn()(self.params, *self._to_device(waveforms, lengths))
+        outs = tuple(x.cpu().numpy() for x in outs)
+        self._host_decode_flags(outs)
+        return outs[:4]
 
     def decode_single(self, waveform: np.ndarray):
         """Decode one utterance, bucket-padded. Returns (token_ids, frames)."""

@@ -3,7 +3,7 @@
 A copy of ``reazonspeech_tpu.evaluation`` (contract parity with the
 reference package ``reazonspeech.evaluation``, pkg/evaluation/src/__init__.py):
 BaseEvaluator + CER utilities, process-level data parallelism via
-datasets.map. :func:`mesh_model` is not ported yet and raises.
+datasets.map, and :func:`mesh_model`, one evaluator over a mesh of devices.
 """
 
 from .base import BaseEvaluator, EvaluationResult, EvaluationResultBatch

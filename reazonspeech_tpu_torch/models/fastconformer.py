@@ -19,8 +19,11 @@ with its swish (``ln_dense``), the conv module, and, with
 ffn1 residual add (``ln_dense_add``) feeding the packed attention kernel,
 with the ffn2 add, final LayerNorm and length mask in one ``add_ln``.
 
-The TPU-only machinery is not ported: the 128-alignment pad of T, the VMEM
-byte budgets and sequence sharding. So every kernel runs at the true T, and
+The TPU-only machinery is not ported: the 128-alignment pad of T and the
+VMEM byte budgets. ``seq_axis`` names the mesh axis of a sequence-parallel
+encode (``parallel/sequence.py`` splits the time axis): this encoder accepts
+it with the plain impls and runs unsplit, and raises with a kernel impl, as
+the reference does. So every kernel runs at the true T, and
 the conv kernel runs at every T where the reference's byte gate sends long
 inputs to its XLA branch; at fp32 the two branches compute the same
 function. One shape gate is mirrored, the attention route
@@ -122,8 +125,6 @@ def _check_supported(cfg: FastConformerConfig):
         raise ValueError(f"unknown subsampling_style {cfg.subsampling_style!r}")
     if cfg.conv_norm not in ("batch_norm", "layer_norm"):
         raise ValueError(f"unknown conv_norm {cfg.conv_norm!r}")
-    if cfg.seq_axis is not None:
-        raise ValueError("seq_axis: sequence sharding is not ported")
     impls = (cfg.attn_impl, cfg.conv_impl, cfg.lnd_impl)
     if any(impl not in ("xla", "pallas") for impl in impls):
         raise ValueError(f"unknown impl in attn/conv/lnd_impl={impls}")
@@ -274,6 +275,14 @@ def _mhsa_packed(p, r, delta, pos_emb, lengths, cfg: FastConformerConfig):
     whose three weight segments share one LN pass and are written side by
     side into one [B, T, 3D] projection (no concatenated weight). Returns
     ``(attn_out [B, T, D], x)``."""
+    out, stream = _attend_packed(p, r, delta, pos_emb, lengths, cfg)
+    return dense(p["attn_out"], out, dtype=cfg.dtype), stream
+
+
+def _attend_packed(p, r, delta, pos_emb, lengths, cfg: FastConformerConfig):
+    """:func:`_mhsa_packed` before the output projection: ``(heads
+    [B, T, H·dh] in the compute dtype, x)``; the heads are ``cfg``'s (a
+    tensor-parallel shard passes its own head group's weights and count)."""
     h, dh, dt = cfg.num_heads, cfg.head_dim, cfg.dtype
     w_qkv = tuple(p[k]["w"].to(dt) for k in ("attn_q", "attn_k", "attn_v"))
     c_qkv = tuple(p[k]["b"] for k in ("attn_q", "attn_k", "attn_v"))
@@ -282,15 +291,22 @@ def _mhsa_packed(p, r, delta, pos_emb, lengths, cfg: FastConformerConfig):
         r, delta, p["attn_ln"]["scale"], p["attn_ln"]["bias"], w_qkv, c_qkv, scale=0.5)
     pos = dense(p["attn_pos"], pos_emb, dtype=dt).reshape(-1, h, dh)
     attend = relpos_attention_fused_packed_diff if diff else relpos_attention_fused_packed
-    out = attend(qkv, pos, p["attn_bias_u"], p["attn_bias_v"], lengths, h)
-    return dense(p["attn_out"], out, dtype=dt), stream
+    return attend(qkv, pos, p["attn_bias_u"], p["attn_bias_v"], lengths, h), stream
 
 
 def _mhsa_relpos(p, x_raw, pos_emb, mask, lengths, cfg: FastConformerConfig):
     """Pre-LN relative-position MHSA (Transformer-XL form). x_raw: [B, T, D]
     residual stream; pos_emb: [2T-1, D]; mask: [B, T]. Returns [B, T, D]."""
-    b, t, d = x_raw.shape
+    return dense(p["attn_out"], _attend(p, x_raw, pos_emb, mask, lengths, cfg), dtype=cfg.dtype)
+
+
+def _attend(p, x_raw, pos_emb, mask, lengths, cfg: FastConformerConfig):
+    """:func:`_mhsa_relpos` before the output projection: the heads
+    [B, T, H·dh] in the compute dtype (``cfg``'s heads, as in
+    :func:`_attend_packed`)."""
+    b, t, _ = x_raw.shape
     h, dh = cfg.num_heads, cfg.head_dim
+    d = h * dh
     dt = cfg.dtype
     x = layer_norm(p["attn_ln"], x_raw).to(dt)
     q = dense(p["attn_q"], x, dtype=dt)
@@ -302,8 +318,7 @@ def _mhsa_relpos(p, x_raw, pos_emb, mask, lengths, cfg: FastConformerConfig):
     diff = records(q, k, v, pos)
     if route == "fused":
         attend = relpos_attention_fused_diff if diff else relpos_attention_fused
-        out = attend(q, k, v, pos, p["attn_bias_u"], p["attn_bias_v"], lengths, h)
-        return dense(p["attn_out"], out, dtype=dt)
+        return attend(q, k, v, pos, p["attn_bias_u"], p["attn_bias_v"], lengths, h)
 
     f32 = torch.float32
     q = q.reshape(b, t, h, dh)
@@ -315,8 +330,7 @@ def _mhsa_relpos(p, x_raw, pos_emb, mask, lengths, cfg: FastConformerConfig):
         out = attend(
             heads_first(qu), heads_first(qv), heads_first(k.reshape(b, t, h, dh)),
             heads_first(v.reshape(b, t, h, dh)), pos, lengths)  # [B, H, T, dh] fp32
-        out = out.transpose(1, 2).to(dt).reshape(b, t, d)
-        return dense(p["attn_out"], out, dtype=dt)
+        return out.transpose(1, 2).to(dt).reshape(b, t, d)
 
     qu, qv = qu.to(f32), qv.to(f32)
     ac = torch.einsum("bthd,bshd->bhts", qu, k.reshape(b, t, h, dh).to(f32))
@@ -325,7 +339,7 @@ def _mhsa_relpos(p, x_raw, pos_emb, mask, lengths, cfg: FastConformerConfig):
     scores = torch.where(mask[:, None, None, :], scores, torch.finfo(f32).min)
     probs = torch.softmax(scores, dim=-1).to(dt)
     out = torch.einsum("bhts,bshd->bthd", probs.to(f32), v.reshape(b, t, h, dh).to(f32))
-    return dense(p["attn_out"], out.to(dt).reshape(b, t, d), dtype=dt)
+    return out.to(dt).reshape(b, t, d)
 
 
 def _conv_module(p, x_raw, mask, lengths, cfg: FastConformerConfig):
@@ -359,16 +373,19 @@ def _conv_module(p, x_raw, mask, lengths, cfg: FastConformerConfig):
 
 
 def _ffn(p, name, x, cfg: FastConformerConfig):
+    return dense(p[f"{name}_out"], _ffn_hidden(p, name, x, cfg), dtype=cfg.dtype)
+
+
+def _ffn_hidden(p, name, x, cfg: FastConformerConfig):
+    """LN → in-projection → swish: the FFN before its out-projection."""
     dt = cfg.dtype
     if cfg.lnd_impl == "pallas":
         w = p[f"{name}_in"]["w"].to(dt)
-        y = (ln_dense_diff if records(x, w) else ln_dense)(
+        return (ln_dense_diff if records(x, w) else ln_dense)(
             x, p[f"{name}_ln"]["scale"], p[f"{name}_ln"]["bias"], w, p[f"{name}_in"]["b"],
             activation="swish")
-        return dense(p[f"{name}_out"], y, dtype=dt)
     y = layer_norm(p[f"{name}_ln"], x).to(dt)
-    y = swish(dense(p[f"{name}_in"], y, dtype=dt))
-    return dense(p[f"{name}_out"], y, dtype=dt)
+    return swish(dense(p[f"{name}_in"], y, dtype=dt))
 
 
 def _block(p, x, pos_emb, mask, lengths, cfg: FastConformerConfig):
@@ -413,9 +430,27 @@ def _encode_prologue(params, feats, feat_lengths, cfg: FastConformerConfig):
 
 
 def _layer(tree, i):
+    """Layer ``i`` of a stacked tree (a list leaf holds tensor-parallel
+    shards, each stacked: layer ``i`` of each)."""
     if isinstance(tree, dict):
         return {k: _layer(v, i) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return type(tree)(part[i] for part in tree)
     return tree[i]
+
+
+def _run_blocks(blocks, n_layers, x, pos_emb, mask, key_lengths, cfg: FastConformerConfig,
+                block=_block):
+    """``n_layers`` blocks of the stacked tree ``blocks`` over the stream
+    ``x``, each recomputed in the backward under ``cfg.remat``."""
+    remat = cfg.remat and torch.is_grad_enabled()
+    for i in range(n_layers):
+        p = _layer(blocks, i)
+        if remat:  # the block's activations recomputed in the backward
+            x = checkpoint(block, p, x, pos_emb, mask, key_lengths, cfg, use_reentrant=False)
+        else:
+            x = block(p, x, pos_emb, mask, key_lengths, cfg)
+    return x
 
 
 def fastconformer_encode(params, feats, feat_lengths, cfg: FastConformerConfig):
@@ -430,17 +465,16 @@ def fastconformer_encode(params, feats, feat_lengths, cfg: FastConformerConfig):
     T' = T / subsampling_factor (0.08 s per frame at 10 ms hop).
     """
     _check_supported(cfg)
+    if cfg.seq_axis and "pallas" in (cfg.attn_impl, cfg.conv_impl, cfg.lnd_impl):
+        # the sequence-parallel encode splits the plain formulas only
+        raise ValueError(
+            "seq_axis requires the XLA impls (attn_impl/conv_impl/lnd_impl='xla'); use "
+            "parallel.sequence.sequence_parallel_config/sequence_parallel_encode")
     feat_lengths = feat_lengths.to(torch.int32)
     x, lengths, pos_emb, mask = _encode_prologue(params, feats, feat_lengths, cfg)
     # what the reference's kernels are given: the valid count within T
     key_lengths = mask.sum(dim=-1, dtype=torch.int32)
-    remat = cfg.remat and torch.is_grad_enabled()
-    for i in range(cfg.num_layers):
-        p = _layer(params["blocks"], i)
-        if remat:  # the block's activations recomputed in the backward
-            x = checkpoint(_block, p, x, pos_emb, mask, key_lengths, cfg, use_reentrant=False)
-        else:
-            x = _block(p, x, pos_emb, mask, key_lengths, cfg)
+    x = _run_blocks(params["blocks"], cfg.num_layers, x, pos_emb, mask, key_lengths, cfg)
     if cfg.final_norm:
         x = layer_norm(params["after_norm"], x)
     return x.to(torch.float32), lengths

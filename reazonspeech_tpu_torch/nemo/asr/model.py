@@ -84,14 +84,26 @@ class NemoTorchModel:
     tokenizer: object
     device: torch.device
 
+    def decode_batch_fn(self):
+        """The per-shard pipeline ``(params, waveform, lengths) -> (tokens,
+        frames, counts, enc_lengths)`` on tensors of one device, closing
+        over the configs: what ``parallel.serving.DataParallelDecoder`` runs
+        on each mesh entry."""
+        fe_cfg, enc_cfg, rnnt_cfg, decode_cfg = (
+            self.fe_cfg, self.enc_cfg, self.rnnt_cfg, self.decode_cfg)
+
+        def fn(params, waveform, lengths):
+            return asr_forward(params, waveform, lengths, fe_cfg, enc_cfg, rnnt_cfg, decode_cfg)
+
+        return fn
+
     @torch.inference_mode()
     def decode_batch(self, waveforms: np.ndarray, lengths: np.ndarray):
         """Run the pipeline on a padded [B, N] batch; returns host numpy
         (tokens, frames, counts, enc_lengths)."""
         wav = torch.from_numpy(np.ascontiguousarray(waveforms, np.float32)).to(self.device)
         lens = torch.from_numpy(np.asarray(lengths, np.int32)).to(self.device)
-        out = asr_forward(self.params, wav, lens, self.fe_cfg, self.enc_cfg,
-                          self.rnnt_cfg, self.decode_cfg)
+        out = self.decode_batch_fn()(self.params, wav, lens)
         return tuple(x.cpu().numpy() for x in out)
 
     def decode_single(self, waveform: np.ndarray):

@@ -91,6 +91,7 @@ _WORKSPACES = {
 }
 # kernel name -> launches since the last reset (ops.reset_launch_counts)
 launches = dict.fromkeys(KERNELS, 0)
+_count_lock = threading.Lock()
 
 _lock = threading.Lock()
 _lib = None
@@ -186,7 +187,8 @@ def launch(name, *args):
     if err != 0:
         msg = lib.rs_cuda_error_string(err).decode()
         raise RuntimeError(f"{name}: CUDA error {err} ({msg})")
-    launches[name.removeprefix("rs_")] += 1
+    with _count_lock:  # mesh entries launch from threads of their own
+        launches[name.removeprefix("rs_")] += 1
 
 
 def launch_on(dev, name, *args):

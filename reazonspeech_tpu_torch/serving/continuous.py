@@ -33,7 +33,8 @@ Device interaction:
 
 - the lane clocks are mirrored on the host by the device loop's own
   arithmetic, so scheduling reads nothing back from the card;
-- the executor thread does its device work in inference mode on a CUDA
+- the executor thread does its device work in inference mode; each lane
+  group (the whole pool, or one per entry of a mesh's data axis) on a CUDA
   stream of its own (so the kernels' per-stream workspaces, and the
   allocator's blocks, are never shared with a decode on another thread);
 - host arrays go to the card through pinned buffers that are made afresh
@@ -70,7 +71,7 @@ from ..decoding.transducer_graves import (
 from ..decoding.transducer_maes import (
     MAESBeamConfig, maes_beam_segment, maes_finalize, maes_state_init,
 )
-from ..device import host_to_device
+from ..device import host_to_device, param_device
 from ..frontend.features import log_mel_spectrogram, num_frames
 from ..models.fastconformer import encoder_output_length, fastconformer_encode
 from ..models.rnnt import joint_precompute_enc
@@ -117,8 +118,9 @@ class _GravesAdapter:
     def bound(self, lane_len: int) -> int:
         return int(lane_len)
 
-    def state_init(self, n_lanes):
-        return graves_state_init(n_lanes, self.model.rnnt_cfg, self.cfg, self.model.device)
+    def state_init(self, params, n_lanes):
+        return graves_state_init(n_lanes, self.model.rnnt_cfg, self.cfg,
+                                 param_device(params["predictor"]))
 
     def segment_call(self, params, ring, lane_len, reset, state, n, frames_left):
         state = graves_beam_segment(params["predictor"], params["joint"], ring, lane_len, reset,
@@ -135,8 +137,8 @@ class _MAESAdapter(_GravesAdapter):
     Graves adapter's lane contract; the harvest also reads ``fidx >=
     lane_len`` through the lagged done flags."""
 
-    def state_init(self, n_lanes):
-        return maes_state_init(self.model.params["predictor"], n_lanes, self.model.rnnt_cfg,
+    def state_init(self, params, n_lanes):
+        return maes_state_init(params["predictor"], n_lanes, self.model.rnnt_cfg,
                                self.cfg)
 
     def segment_call(self, params, ring, lane_len, reset, state, n, frames_left):
@@ -161,8 +163,8 @@ class _ALSDAdapter:
     def bound(self, lane_len: int) -> int:
         return alsd_step_bound(lane_len, self.cfg)
 
-    def state_init(self, n_lanes):
-        return alsd_state_init(self.model.params["predictor"], n_lanes, self.model.rnnt_cfg,
+    def state_init(self, params, n_lanes):
+        return alsd_state_init(params["predictor"], n_lanes, self.model.rnnt_cfg,
                                self.cfg)
 
     def segment_call(self, params, ring, lane_len, reset, state, n, frames_left):
@@ -187,8 +189,8 @@ class _GreedyAdapter:
     def bound(self, lane_len: int) -> int:
         return greedy_step_bound(lane_len, self.cfg)
 
-    def state_init(self, n_lanes):
-        return greedy_state_init(self.model.params["predictor"], n_lanes, self.model.rnnt_cfg,
+    def state_init(self, params, n_lanes):
+        return greedy_state_init(params["predictor"], n_lanes, self.model.rnnt_cfg,
                                  self.cfg)
 
     def segment_call(self, params, ring, lane_len, reset, state, n, frames_left):
@@ -236,6 +238,39 @@ class _ToHost:
         return [h.numpy() for h in self.host]
 
 
+class _LaneGroup:
+    """One device's share of the lane pool: lanes ``[lo, hi)``, the params
+    on its device, their decoder state and ring of projections, and a CUDA
+    stream of its own. The pool is one group, or one per entry of the
+    mesh's data axis."""
+
+    def __init__(self, device, params, lo, hi):
+        self.device = torch.device(device)
+        self.params = params
+        self.lo, self.hi = lo, hi
+        self.stream = torch.cuda.Stream(self.device) if self.device.type == "cuda" else None
+        self.state = self.ring = None
+
+    @contextlib.contextmanager
+    def work(self):
+        """The group's device current and its stream, where it has one."""
+        if self.stream is None:
+            yield
+            return
+        with torch.cuda.device(self.device), torch.cuda.stream(self.stream):
+            yield
+
+    def put(self, array):
+        return host_to_device(array, self.device)
+
+    def wait_for(self, other, tensor):
+        """Order this group's stream after ``other``'s, which made
+        ``tensor``, and keep ``tensor``'s memory until this stream is done."""
+        if other is not self and self.stream is not None:
+            self.stream.wait_stream(other.stream)
+            tensor.record_stream(self.stream)
+
+
 class ContinuousBatcher:
     """Lane-recycling executor for the transducer flavor containers.
 
@@ -256,8 +291,15 @@ class ContinuousBatcher:
         encode tick is padded to (max_encode_batch, max_samples): one batch
         shape for the encoder, the shape a same-shape MicroBatcher A/B and
         a captured graph of the tick need
-      mesh: sharding the pool over several devices is not ported yet
-        (ROADMAP.md, queue 1 item 10); anything but None raises
+      mesh: a :func:`parallel.mesh.make_mesh` mesh: the lane pool is split
+        over its ``data`` axis into one group of lanes per entry, each with
+        its own params copy, decoder state and ring on that entry's device
+        (entries may repeat a device), so one executor (and one HTTP server)
+        spans several devices. The encode tick splits its request batch
+        over the groups, and segments and finalize run per group. Requires
+        ``n_lanes`` and ``max_encode_batch`` divisible by the data-axis size.
+        A lane's body has no cross-lane op, so each request's result is the
+        single-device pool's
       max_pending: submit() raises queue.Full beyond this many queued
         requests (None: unbounded); the HTTP front answers 503
 
@@ -270,10 +312,6 @@ class ContinuousBatcher:
     def __init__(self, model, n_lanes=16, frames_per_segment=32, max_seconds=20.0,
                  drain_timeout=300.0, max_encode_batch=16, mesh=None,
                  max_pending=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "ContinuousBatcher(mesh=...): sharding the lane pool over several devices is "
-                "not ported yet (ROADMAP.md, queue 1 item 10)")
         self.model = model
         self.max_pending = max_pending
         self.n_lanes = int(n_lanes)
@@ -286,11 +324,12 @@ class ContinuousBatcher:
         self.cfg = self._ad.cfg
         self.drain_timeout = drain_timeout
         self.max_encode_batch = int(max_encode_batch)
-        self.device = torch.device(model.device)
-        self._stream = torch.cuda.Stream(self.device) if self.device.type == "cuda" else None
-
-        with self._device_work():
-            self._init_device_state()
+        self.mesh = mesh
+        self._groups = self._make_groups(mesh)
+        with torch.inference_mode():
+            for g in self._groups:
+                with g.work():
+                    self._init_device_state(g)
         # the lane clocks, mirrored on the host
         self._lane_len = np.zeros(self.n_lanes, np.int32)
         self._fidx = np.zeros(self.n_lanes, np.int32)
@@ -319,20 +358,32 @@ class ContinuousBatcher:
                                         name="ContinuousBatcher")
         self._thread.start()
 
-    @contextlib.contextmanager
-    def _device_work(self):
-        """Inference mode, on the executor's own CUDA stream where there is
-        one (both are per thread)."""
-        stream = torch.cuda.stream(self._stream) if self._stream is not None \
-            else contextlib.nullcontext()
-        with torch.inference_mode(), stream:
-            yield
+    def _make_groups(self, mesh):
+        """The lane groups: the whole pool on the model's device, or one
+        group per entry of the mesh's data axis."""
+        if mesh is None:
+            return [_LaneGroup(self.model.device, self.model.params, 0, self.n_lanes)]
+        from ..parallel.mesh import DATA_AXIS, replicate
 
-    def _init_device_state(self):
-        """A fresh decoder state and a zeroed ring of projections."""
-        self._state = self._ad.state_init(self.n_lanes)
-        self._ring = torch.zeros((self.n_lanes, self.t_buf, self.model.rnnt_cfg.joint_hidden),
-                                 dtype=torch.float32, device=self.device)
+        n_data = int(mesh.shape[DATA_AXIS])
+        if self.n_lanes % n_data:
+            raise ValueError(
+                f"n_lanes={self.n_lanes} must divide over the mesh data axis ({n_data})")
+        if self.max_encode_batch % n_data:
+            raise ValueError(f"max_encode_batch={self.max_encode_batch} must divide over "
+                             f"the mesh data axis ({n_data})")
+        per = self.n_lanes // n_data
+        devices = [mesh.devices[d, 0] for d in range(n_data)]
+        # params once per distinct device (the model's own where it is one)
+        params = {dev: replicate(self.model.params, dev) for dev in dict.fromkeys(devices)}
+        return [_LaneGroup(dev, params[dev], d * per, (d + 1) * per)
+                for d, dev in enumerate(devices)]
+
+    def _init_device_state(self, g):
+        """A fresh decoder state and a zeroed ring of projections for ``g``."""
+        g.state = self._ad.state_init(g.params, g.hi - g.lo)
+        g.ring = torch.zeros((g.hi - g.lo, self.t_buf, self.model.rnnt_cfg.joint_hidden),
+                             dtype=torch.float32, device=g.device)
 
     # -- public API ---------------------------------------------------------
 
@@ -556,12 +607,28 @@ class ContinuousBatcher:
             buf[i, :len(w)] = w
             lens[i] = len(w)
         mdl = self.model
-        proj = _proj_from_wav(mdl.params, host_to_device(buf, self.device),
-                              host_to_device(lens, self.device),
-                              mdl.fe_cfg, mdl.enc_cfg, mdl.rnnt_cfg, self.t_buf, self._ad.mvn)
-        # the pad rows are dropped here; each real row covers all t_buf frames
-        self._ring.index_copy_(0, host_to_device(np.asarray(lanes, np.int64), self.device),
-                               proj[:m])
+        # the encode batch splits over the groups (rows all padding skipped),
+        # then each real row goes to the group that owns its lane
+        rows = self.max_encode_batch // len(self._groups)
+        projs = []
+        for d, g in enumerate(self._groups[:-(-m // rows)]):
+            with g.work():
+                projs.append(_proj_from_wav(
+                    g.params, g.put(buf[d * rows:(d + 1) * rows]),
+                    g.put(lens[d * rows:(d + 1) * rows]), mdl.fe_cfg, mdl.enc_cfg, mdl.rnnt_cfg,
+                    self.t_buf, self._ad.mvn))
+        for g in self._groups:
+            mine = [i for i in range(m) if g.lo <= lanes[i] < g.hi]
+            if not mine:
+                continue
+            with g.work():
+                for d in {i // rows for i in mine}:
+                    g.wait_for(self._groups[d], projs[d])
+                # each real row covers all t_buf frames of its lane
+                src = torch.cat([projs[i // rows][i % rows:i % rows + 1].to(g.device)
+                                 for i in mine])
+                g.ring.index_copy_(0, g.put(np.asarray([lanes[i] - g.lo for i in mine],
+                                                       np.int64)), src)
         self.encode_ticks += 1
         for (w, fut), lane in zip(items, lanes):
             n = self.host_frames(len(w))
@@ -584,9 +651,12 @@ class ContinuousBatcher:
         self._done_host[lane] = False
 
     def _loop(self):
-        with self._device_work():
+        with torch.inference_mode():  # per thread; each group's device work on its stream
             while self._tick():
                 pass
+
+    def _group_of(self, lane):
+        return lane // (self.n_lanes // len(self._groups))
 
     def _tick(self) -> bool:
         """One tick of the executor; False once it is closed and drained."""
@@ -595,17 +665,24 @@ class ContinuousBatcher:
         # the queue before their lanes are assigned)
         held = []
         try:
-            if self._state is None:  # a fault left no usable device state
-                self._init_device_state()
-            # 1. harvest finished lanes: dispatch their finalize and its copy
-            #    to the host now, read the copy after the next segment is out
+            for g in self._groups:
+                if g.state is None:  # a fault left no usable device state
+                    with g.work():
+                        self._init_device_state(g)
+            # 1. harvest finished lanes: dispatch their groups' finalize and
+            #    its copy to the host now, read the copy after the next
+            #    segment is out
             finished = [lane for lane in range(self.n_lanes)
                         if self._lane_fut[lane] is not None and self._lane_done(lane)]
             fin = None
             if finished:
-                outs = self._ad.finalize_call(self._state,
-                                              host_to_device(self._lane_len, self.device))
-                fin = (_ToHost(outs), [(lane, self._lane_fut[lane]) for lane in finished])
+                hosts = {}
+                for gi in sorted({self._group_of(lane) for lane in finished}):
+                    g = self._groups[gi]
+                    with g.work():
+                        hosts[gi] = _ToHost(self._ad.finalize_call(
+                            g.state, g.put(self._lane_len[g.lo:g.hi])))
+                fin = (hosts, [(lane, self._lane_fut[lane]) for lane in finished])
                 held += [fut for _, fut in fin[1]]
                 for lane in finished:
                     self._free(lane)
@@ -632,9 +709,16 @@ class ContinuousBatcher:
             if any(f is not None for f in self._lane_fut):
                 busy = self._bound - self._fidx
                 t0 = time.perf_counter()
-                self._state, done_dev = self._ad.segment_call(
-                    self.model.params, self._ring, host_to_device(self._lane_len, self.device),
-                    host_to_device(reset, self.device), self._state, self.n_frames, int(busy.max()))
+                done_dev = []
+                for g in self._groups:
+                    lanes = slice(g.lo, g.hi)
+                    with g.work():
+                        g.state, done = self._ad.segment_call(
+                            g.params, g.ring, g.put(self._lane_len[lanes]), g.put(reset[lanes]),
+                            g.state, self.n_frames, int(busy[lanes].max()))
+                        done_dev.append(None if done is None else _ToHost([done]))
+                if done_dev[0] is None:
+                    done_dev = None
                 self.segment_host_s += time.perf_counter() - t0
                 self._fidx = np.minimum(self._fidx + self.n_frames, self._bound)
                 self.segments += 1
@@ -642,10 +726,13 @@ class ContinuousBatcher:
 
             # 4. resolve the finished futures (their copy overlaps the segment)
             if fin:
-                host, recs = fin
-                tokens, frames, counts = host.get()
+                hosts, recs = fin
+                outs = {gi: h.get() for gi, h in hosts.items()}
                 now = time.perf_counter()
                 for lane, fut in recs:
+                    g = self._group_of(lane)
+                    tokens, frames, counts = outs[g]
+                    lane -= self._groups[g].lo
                     c = int(counts[lane])
                     t0 = getattr(fut, "_submit_t", None)
                     if t0 is not None:
@@ -657,12 +744,12 @@ class ContinuousBatcher:
             # 5. read the PREVIOUS tick's done flags (their segment ran before
             #    the one just dispatched), then queue this tick's
             if self._done_pending is not None:
-                got = self._done_pending.get()[0]
+                got = np.concatenate([h.get()[0] for h in self._done_pending])
                 self._done_host = (self._done_host | got) & ~self._done_skip
                 self._done_skip[:] = False
                 self._done_pending = None
             if done_dev is not None:
-                self._done_pending = _ToHost([done_dev])
+                self._done_pending = done_dev
             return True
         except Exception as e:  # a failed tick fails every request it holds
             self._fail_all(e, held)
@@ -687,7 +774,8 @@ class ContinuousBatcher:
             self._free(lane)
         self._done_skip[:] = False
         self._done_pending = None
-        self._state = self._ring = None
+        for g in self._groups:
+            g.state = g.ring = None
         for _ in range(queued):
             try:
                 item = self._queue.get_nowait()

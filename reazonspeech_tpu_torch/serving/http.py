@@ -387,8 +387,7 @@ def main(argv=None):
                     help="shed load (HTTP 503) beyond this many queued requests; "
                          "0 = unbounded")
     ap.add_argument("--mesh-data", type=int, default=0,
-                    help="shard the continuous lane pool over this many devices "
-                         "(not ported yet)")
+                    help="split the continuous lane pool over the first N CUDA devices")
     ap.add_argument("--warmup", type=float, default=0.0, metavar="SECONDS",
                     help="run the serving shapes once before binding the port (micro: every "
                          "batch bucket at this request length; continuous: one request of "
@@ -404,9 +403,17 @@ def main(argv=None):
         # has no lane-recycling analogue
         ap.error("--continuous is not supported for --flavor avsr "
                  "(seq2seq generate has no lane-recycling analogue)")
+    mesh = None
     if args.mesh_data:
-        ap.error("--mesh-data is not ported yet: the lane pool runs on one card "
-                 "(ROADMAP.md, queue 1 item 10)")
+        if not args.continuous:
+            ap.error("--mesh-data splits the continuous executor's lane pool; add --continuous")
+        from ..parallel.mesh import make_mesh
+
+        try:  # before the load: a missing card fails fast
+            mesh = make_mesh(n_data=args.mesh_data)  # the first N CUDA devices
+        except ValueError as e:
+            ap.error(f"--mesh-data {args.mesh_data}: {e}")
+        print(f"mesh: {mesh}", flush=True)
     cache_dir = enable_compile_cache(args.compile_cache)
     if cache_dir:
         print(f"compile cache: {cache_dir}", flush=True)
@@ -426,7 +433,7 @@ def main(argv=None):
         serve(model, args.host, args.port, seconds_per_frame=spf, executor="continuous",
               warmup_seconds=args.warmup or None, n_lanes=args.lanes,
               frames_per_segment=args.frames_per_segment, max_seconds=args.max_seconds,
-              max_pending=args.max_pending or None)
+              max_pending=args.max_pending or None, mesh=mesh)
     else:
         serve(model, args.host, args.port, seconds_per_frame=spf,
               warmup_seconds=args.warmup or None, max_batch=args.max_batch,

@@ -21,10 +21,6 @@ from .losses import rnnt_loss
 
 __all__ = ["TrainState", "make_train_step", "compute_loss", "tree_leaves", "tree_map"]
 
-_PIPELINE = ("pipeline=: the GPipe encoder schedule is not ported "
-             "(ROADMAP Queue 1 item 10, parallel/*)")
-
-
 @dataclass
 class TrainState:
     params: Any
@@ -43,9 +39,13 @@ def tree_leaves(tree):
 
 
 def tree_map(fn, tree):
+    """``fn`` over the tensors of a nested dict/list (a list keeps its type:
+    ``parallel.mesh.Shards`` stays one)."""
     if isinstance(tree, dict):
         return {k: tree_map(fn, v) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
+    if isinstance(tree, list):
+        return type(tree)(tree_map(fn, v) for v in tree)
+    if isinstance(tree, tuple):
         return [tree_map(fn, v) for v in tree]
     return fn(tree)
 
@@ -56,7 +56,7 @@ def _to_device(batch, device):
 
 def compute_loss(params, batch, fe_cfg: FrontendConfig, enc_cfg: FastConformerConfig,
                  rnnt_cfg: RNNTConfig, ctc_weight: float = 0.0, loss: str = "full",
-                 s_range: int = 5, simple_scale: float = 0.5, pipeline=None):
+                 s_range: int = 5, simple_scale: float = 0.5, pipeline=None, mesh=None):
     """batch: {waveform [B, N] f32, lengths [B] i32, labels [B, U] i32,
     label_lengths [B] i32} (tensors on the params' device) -> the scalar
     mean NLL.
@@ -64,11 +64,34 @@ def compute_loss(params, batch, fe_cfg: FrontendConfig, enc_cfg: FastConformerCo
     ``loss="full"`` materialises the [B, T, U+1, V] joint; ``"pruned"``
     trains the simple + pruned objective (``training.pruned_rnnt``; params
     need a "simple_joint" entry). ``ctc_weight > 0`` (params need a "ctc"
-    head, blank 0) trains ``(1-w)·rnnt + w·ctc``."""
-    if pipeline is not None:
-        raise NotImplementedError(_PIPELINE)
+    head, blank 0) trains ``(1-w)·rnnt + w·ctc``.
+
+    ``pipeline``: a ``parallel.pipeline.PipelineSpec``: the encoder runs
+    under the GPipe schedule over its mesh (autograd through it is the
+    backward pipeline). ``mesh``: a ``('data', 'model')`` mesh over which
+    ``params`` were placed by ``parallel.mesh.shard_params``: the batch
+    splits over ``data`` and the encoder runs as partials over ``model``
+    (``parallel.tensor``)."""
+    loss_kw = dict(ctc_weight=ctc_weight, loss=loss, s_range=s_range, simple_scale=simple_scale)
+    if mesh is not None:
+        from ..parallel.tensor import sharded_loss
+
+        return sharded_loss(params, batch, fe_cfg, enc_cfg, rnnt_cfg, mesh, **loss_kw)
     feats, flens = log_mel_spectrogram(batch["waveform"], batch["lengths"], fe_cfg)
-    enc, elens = fastconformer_encode(params["encoder"], feats, flens, enc_cfg)
+    if pipeline is not None:
+        from ..parallel.pipeline import pipeline_encode_core
+
+        enc, elens = pipeline_encode_core(params["encoder"], feats, flens, enc_cfg,
+                                          pipeline.mesh, pipeline.axis, pipeline.data_axis,
+                                          pipeline.n_micro)
+    else:
+        enc, elens = fastconformer_encode(params["encoder"], feats, flens, enc_cfg)
+    return transducer_loss(params, batch, enc, elens, rnnt_cfg, **loss_kw)
+
+
+def transducer_loss(params, batch, enc, elens, rnnt_cfg: RNNTConfig, ctc_weight=0.0,
+                    loss="full", s_range=5, simple_scale=0.5):
+    """The objective of :func:`compute_loss` on the encoder's output."""
     pred = predictor_sequence(params["predictor"], batch["labels"], rnnt_cfg)
     if loss == "pruned":
         from .pruned_rnnt import pruned_loss_bundle
@@ -93,7 +116,8 @@ def compute_loss(params, batch, fe_cfg: FrontendConfig, enc_cfg: FastConformerCo
 
 
 def make_train_step(fe_cfg, enc_cfg, rnnt_cfg, optimizer=None, ctc_weight=0.0, loss="full",
-                    s_range=5, simple_scale=0.5, pipeline=None, grad_clip=None, schedule=None):
+                    s_range=5, simple_scale=0.5, pipeline=None, grad_clip=None, schedule=None,
+                    mesh=None):
     """Returns (init_state, train_step).
 
     ``optimizer(leaves)`` makes a torch optimizer over the list of param
@@ -104,9 +128,9 @@ def make_train_step(fe_cfg, enc_cfg, rnnt_cfg, optimizer=None, ctc_weight=0.0, l
     norm of the gradients before any clip). ``grad_clip`` clips the
     gradients by their global norm first, and ``schedule(step)`` sets the
     learning rate of the update that takes the state from ``step`` (the
-    Trainer's chain, as optax counts its updates from 0)."""
-    if pipeline is not None:
-        raise NotImplementedError(_PIPELINE)
+    Trainer's chain, as optax counts its updates from 0). ``pipeline`` and
+    ``mesh`` are :func:`compute_loss`'s: the leaves may then lie on several
+    devices (the optimizer updates each where it is)."""
     if optimizer is None:
         def optimizer(leaves):
             return torch.optim.AdamW(leaves, lr=1e-4, weight_decay=0.01)
@@ -119,7 +143,7 @@ def make_train_step(fe_cfg, enc_cfg, rnnt_cfg, optimizer=None, ctc_weight=0.0, l
         leaves = tree_leaves(state.params)
         batch = _to_device(batch, leaves[0].device)
         loss_val = compute_loss(state.params, batch, fe_cfg, enc_cfg, rnnt_cfg, ctc_weight,
-                                loss, s_range, simple_scale)
+                                loss, s_range, simple_scale, pipeline, mesh)
         grads = torch.autograd.grad(loss_val, leaves, allow_unused=True)
         grads = [torch.zeros_like(x) if g is None else g for x, g in zip(leaves, grads)]
         gnorm = global_norm(grads)
@@ -127,7 +151,8 @@ def make_train_step(fe_cfg, enc_cfg, rnnt_cfg, optimizer=None, ctc_weight=0.0, l
             # optax.clip_by_global_norm as written: g / norm · clip once the
             # norm reaches clip (no epsilon, unlike clip_grad_norm_'s 1e-6)
             keep = gnorm < grad_clip
-            grads = [torch.where(keep, g, g / gnorm.to(g.dtype) * grad_clip) for g in grads]
+            grads = [torch.where(keep.to(g.device), g, g / gnorm.to(g.device, g.dtype) * grad_clip)
+                     for g in grads]
         for x, g in zip(leaves, grads):
             x.grad = g
         if schedule is not None:
@@ -142,5 +167,7 @@ def make_train_step(fe_cfg, enc_cfg, rnnt_cfg, optimizer=None, ctc_weight=0.0, l
 
 
 def global_norm(grads):
-    """optax.global_norm: the L2 norm over every leaf, in fp32."""
-    return torch.sqrt(sum(torch.sum(torch.square(g.to(torch.float32))) for g in grads))
+    """optax.global_norm: the L2 norm over every leaf, in fp32 (on the
+    first leaf's device)."""
+    dev = grads[0].device
+    return torch.sqrt(sum(torch.sum(torch.square(g.to(torch.float32))).to(dev) for g in grads))

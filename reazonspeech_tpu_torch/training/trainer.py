@@ -5,8 +5,10 @@ step-numbered checkpoints of the whole training state (params, optimizer
 state, step), resume from the newest, warmup-cosine AdamW after a clip by
 global norm, JSONL metric logging. Orbax is a JAX library, so a
 checkpoint is the port's own file: ``step_{:08d}/state.pt``, one
-``torch.save`` of {params, optimizer, step}. Mesh sharding and the GPipe
-schedule are not ported (ROADMAP Queue 1 item 10).
+``torch.save`` of {params, optimizer, step}. ``mesh=`` trains data x tensor
+parallel (``parallel.mesh.shard_params``, ``parallel.tensor``) and
+``pipeline=`` with the encoder under the GPipe schedule
+(``parallel.pipeline``), the params placed on the mesh's entries.
 """
 
 import json
@@ -79,6 +81,15 @@ def warmup_cosine_decay_schedule(init_value, peak_value, warmup_steps, decay_ste
     return schedule
 
 
+def _plain(tree):
+    """A param tree of dicts, plain lists and detached tensors."""
+    if isinstance(tree, dict):
+        return {k: _plain(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_plain(v) for v in tree]
+    return tree.detach()
+
+
 def _schedule(cfg: TrainerConfig):
     return warmup_cosine_decay_schedule(0.0, cfg.peak_lr, cfg.warmup_steps, cfg.decay_steps,
                                         cfg.peak_lr * cfg.end_lr_scale)
@@ -92,14 +103,28 @@ class Trainer:
     >>> tr.fit(batch_iter, max_steps=10_000)
 
     ``device=None`` means CUDA (raising without a GPU); pass
-    ``device="cpu"`` to train on the CPU. The params are moved there."""
+    ``device="cpu"`` to train on the CPU. The params are moved there.
+
+    ``mesh``: a ``('data', 'model')`` mesh (``parallel.mesh.make_mesh``):
+    the params are split by ``parallel.mesh.shard_params``, each batch over
+    ``data``, the encoder's FFNs and attention over ``model``.
+    ``pipeline``: a ``parallel.pipeline.PipelineSpec``: the params are
+    placed by ``shard_params_pipeline`` and the encoder runs under the
+    GPipe schedule. Either one sets the devices (``device`` must then be
+    None or the mesh's first entry)."""
 
     def __init__(self, fe_cfg, enc_cfg, rnnt_cfg, cfg: TrainerConfig = TrainerConfig(),
                  mesh=None, pipeline=None, device=None):
-        for name, value in (("mesh", mesh), ("pipeline", pipeline)):
-            if value is not None:
-                raise NotImplementedError(f"{name}=: mesh sharding and the GPipe schedule are "
-                                          "not ported (ROADMAP Queue 1 item 10, parallel/*)")
+        if mesh is not None and pipeline is not None:
+            raise ValueError("Trainer: pass mesh= or pipeline=, not both (the pipeline's "
+                             "spec carries its own mesh)")
+        self.mesh, self.pipeline = mesh, pipeline
+        layout = mesh if mesh is not None else getattr(pipeline, "mesh", None)
+        if layout is not None:
+            first = layout.devices.flat[0]
+            if device is not None and torch.device(device) != first:
+                raise ValueError(f"Trainer(device={device!r}): the mesh's first entry is {first}")
+            device = first
         if device is None and not torch.cuda.is_available():
             raise RuntimeError("Trainer(device=None) trains on CUDA and no CUDA device is "
                                "available; pass device=\"cpu\" to train on the CPU")
@@ -115,15 +140,23 @@ class Trainer:
         self._init_state, self._step_fn = make_train_step(
             fe_cfg, enc_cfg, rnnt_cfg, optimizer=optimizer, ctc_weight=cfg.ctc_weight,
             loss=cfg.loss, s_range=cfg.s_range, simple_scale=cfg.simple_scale,
-            grad_clip=cfg.grad_clip, schedule=self.schedule)
+            grad_clip=cfg.grad_clip, schedule=self.schedule, pipeline=pipeline, mesh=mesh)
         self.state: Optional[TrainState] = None
         self.history: list = []
 
     # -- state ------------------------------------------------------------
 
     def init(self, params):
-        self.state = self._init_state(tree_map(lambda x: torch.as_tensor(x).to(self.device),
-                                               params))
+        params = tree_map(lambda x: torch.as_tensor(x).to(self.device), params)
+        if self.mesh is not None:
+            from ..parallel.mesh import shard_params
+
+            params = shard_params(params, self.mesh)
+        elif self.pipeline is not None:
+            from ..parallel.pipeline import shard_params_pipeline
+
+            params = shard_params_pipeline(params, self.pipeline.mesh, self.pipeline.axis)
+        self.state = self._init_state(params)
         return self
 
     def _ckpt_path(self, step):
@@ -136,7 +169,9 @@ class Trainer:
         step = int(self.state.step)
         path = os.path.abspath(self._ckpt_path(step))
         os.makedirs(path, exist_ok=True)
-        tree = {"params": tree_map(lambda x: x.detach(), self.state.params),
+        # plain lists (a parallel.mesh.Shards leaf too): restore_latest copies
+        # the leaves in order into the template's layout
+        tree = {"params": _plain(self.state.params),
                 "optimizer": self.state.optimizer.state_dict(), "step": step}
         tmp = os.path.join(path, _STATE_FILE + ".tmp")
         torch.save(tree, tmp)

@@ -167,9 +167,17 @@ def test_unported_settings_raise(setup):
     feats, lens = torch.zeros(1, 16, tenc.feat_in), torch.tensor([16])
     # conv2d subsampling and layer_norm conv modules are ported (espnet)
     for bad in (dict(lnd_impl="triton"), dict(subsampling_style="conv1d"),
-                dict(conv_norm="group_norm"), dict(seq_axis="seq")):
+                dict(conv_norm="group_norm")):
         with pytest.raises(ValueError):
             tfc.fastconformer_encode(p, feats, lens, replace(tenc, **bad))
+    # seq_axis (parallel/sequence.py) with a kernel impl still raises, as the
+    # reference's encoder does; with the plain impls it is accepted
+    assert tenc.attn_impl == "pallas"
+    with pytest.raises(ValueError, match="seq_axis requires the XLA impls"):
+        tfc.fastconformer_encode(p, feats, lens, replace(tenc, seq_axis="seq"))
+    plain = replace(tenc, attn_impl="xla", conv_impl="xla", lnd_impl="xla")
+    assert torch.equal(tfc.fastconformer_encode(p, feats, lens, replace(plain, seq_axis="seq"))[0],
+                       tfc.fastconformer_encode(p, feats, lens, plain)[0])
     # the stateless predictor (k2) and greedy blank-run skipping are ported:
     # frame_window=4 is accepted and decodes as window 1 on one input
     from reazonspeech_tpu_torch.decoding import rnnt_greedy as tgreedy

@@ -262,8 +262,13 @@ def test_evaluate_requires_dataset_and_normalizes():
 
 
 def test_mesh_model_is_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="queue 1 item 10"):
+    """mesh_model is ported (tests/test_torch_parallel_serving.py decodes
+    through it): with no devices it takes the visible CUDA devices and
+    refuses where there are fewer than n_data (none here), never the CPU."""
+    with pytest.raises(ValueError, match="needs 2 devices, have 0"):
         mesh_model(object(), 2)
+    with pytest.raises(ValueError, match="pass devices= explicitly"):
+        mesh_model(object(), 2, devices=[torch.device("cpu")])
 
 
 # --- frontend/resample.py --------------------------------------------------------

@@ -254,12 +254,13 @@ def test_main_loads_on_the_gpu_only(monkeypatch):
 
 @pytest.mark.parametrize("argv,item", [
     (["--flavor", "avsr", "--continuous"], "not supported for --flavor avsr"),
-    (["--mesh-data", "2", "--continuous"], "queue 1 item 10"),
+    (["--mesh-data", "2", "--continuous"], "pass devices= explicitly"),  # no CUDA device
+    (["--mesh-data", "2"], "add --continuous"),
 ])
 def test_main_refuses_unported_flags(monkeypatch, capsys, argv, item):
-    """Each refused flag exits with an argparse error naming its ROADMAP
-    item (or, for AVSR's --continuous, why it does not apply), before any
-    model is loaded."""
+    """Each refused flag exits with an argparse error saying why (AVSR's
+    --continuous does not apply; --mesh-data needs the continuous executor
+    and as many CUDA devices as its entries), before any model is loaded."""
     monkeypatch.setattr(port_http, "_load_flavor",
                         lambda *a, **k: pytest.fail("a model was loaded"))
     with pytest.raises(SystemExit) as e:

@@ -63,6 +63,10 @@ HOST_MODULES = ["reazonspeech_tpu_torch." + m for m in (
     "models.fastconformer_streaming", "native", "evaluation", "evaluation.base",
     "evaluation.utils", "evaluation.mesh", "frontend.resample", "utils", "utils.profiling",
     "utils.compile_cache")]
+# parallelism over a single-process mesh
+PARALLEL_MODULES = ["reazonspeech_tpu_torch.parallel"] + [
+    "reazonspeech_tpu_torch.parallel." + m
+    for m in ("mesh", "serving", "pipeline", "sequence", "tensor")]
 
 # each converter run on a published-layout fixture (its lazy imports
 # included: torch, yaml, the port's models), then the modules loaded
@@ -110,7 +114,7 @@ def test_port_imports_no_jax():
     assert leaked == "", f"imported by the port: {leaked}"
     missing = sorted(set(ESPNET_MODULES + DECODE_STEP_MODULES + CONVERT_MODULES
                          + SERVING_MODULES + PIPELINE_MODULES + AVSR_MODULES
-                         + TRAINING_MODULES + HOST_MODULES)
+                         + TRAINING_MODULES + HOST_MODULES + PARALLEL_MODULES)
                      - set(names.split()))
     assert not missing, f"not imported: {missing}"
 

@@ -334,16 +334,19 @@ def test_fault_fails_requests_held_by_the_tick(models, monkeypatch, where):
 
 
 def test_refusals(models):
-    """mesh= names its ROADMAP item; other decode configs and overlong
-    utterances are refused; a closed pool has drained. An mAES container
-    is served (its adapter; its answers are held in
-    tests/test_torch_maes.py)."""
+    """A mesh= the lanes do not divide over, other decode configs and
+    overlong utterances are refused; a closed pool has drained. An mAES
+    container is served (its adapter; its answers are held in
+    tests/test_torch_maes.py; the mesh's in
+    tests/test_torch_parallel_serving.py)."""
     espnet = models["espnet"]
     pool = ContinuousBatcher(replace(espnet, decode_cfg=MAESBeamConfig(beam_size=4)), n_lanes=1)
     assert type(pool._ad).__name__ == "_MAESAdapter"
     pool.close()
-    with pytest.raises(NotImplementedError, match="queue 1 item 10"):
-        ContinuousBatcher(espnet, mesh=object())
+    from reazonspeech_tpu_torch.parallel import make_mesh
+
+    with pytest.raises(ValueError, match="must divide over the mesh data axis"):
+        ContinuousBatcher(espnet, n_lanes=3, mesh=make_mesh(4, devices=["cpu"] * 4))
     with pytest.raises(TypeError, match="decode_cfg"):
         ContinuousBatcher(replace(espnet, decode_cfg=object()))
     pool = ContinuousBatcher(espnet, n_lanes=1, max_seconds=2.0)

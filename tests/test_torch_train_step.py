@@ -6,7 +6,7 @@ kernels in interpret mode, the port's wrappers over their twins): the loss
 and every leaf's gradient, the batch-norm statistics included, and one
 AdamW update (new minus old params), each to relative L2 1e-3; the pruned
 and CTC objectives; ``remat`` gradients equal to no-``remat``; the refusal
-of ``pipeline=``."""
+of a ``pipeline=`` schedule that does not fit."""
 
 from dataclasses import replace
 
@@ -242,8 +242,14 @@ def test_bridge_carries_the_training_heads():
 
 
 def test_pipeline_is_refused():
+    """pipeline= runs (tests/test_torch_parallel_pipeline.py); a schedule
+    that does not fit the encoder (2 blocks over 3 stages) is refused by the
+    step with the reference's message."""
+    from reazonspeech_tpu_torch.parallel.pipeline import PipelineSpec, make_pipeline_mesh
+
     _, _, tenc, tr = _configs("generic")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        tts.make_train_step(t_fe(), tenc, tr, pipeline=object())
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        tts.compute_loss({}, {}, t_fe(), tenc, tr, pipeline=object())
+    spec = PipelineSpec(mesh=make_pipeline_mesh(3, devices=["cpu"] * 3))
+    init_state, step = tts.make_train_step(t_fe(), tenc, tr, pipeline=spec)
+    tree = params_from_numpy(_tree(*_configs("generic")[:2]))
+    with pytest.raises(ValueError, match="must divide by the 'pipe' axis size"):
+        step(init_state(tree), _batch())

@@ -3,8 +3,8 @@ warmup-cosine schedule value for value against optax's, manifest batches
 equal to the JAX ``manifest_batches``', a Trainer that saves at step 2,
 restores and goes on to step 4 bit-equal to an uninterrupted run to 4 (on
 the CPU), the checkpoint retention and listing, and the refusals
-(``mesh=``/``pipeline=``, no GPU without ``device="cpu"``, no checkpoint
-to restore)."""
+(``mesh=`` with ``pipeline=``, a device off the mesh, no GPU without
+``device="cpu"``, no checkpoint to restore)."""
 
 import json
 import os
@@ -163,9 +163,16 @@ def test_log_every_and_save_every(tmp_path):
 def test_refusals(tmp_path, monkeypatch):
     enc, rnnt = _tiny()
     fe = nemo_frontend_config()
-    for kw in (dict(mesh=object()), dict(pipeline=object())):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-            Trainer(fe, enc, rnnt, device="cpu", **kw)
+    # mesh= and pipeline= train (tests/test_torch_parallel_mesh.py); both
+    # at once, or a device other than the mesh's first entry, are refused
+    from reazonspeech_tpu_torch.parallel import PipelineSpec, make_mesh, make_pipeline_mesh
+
+    mesh = make_mesh(2, devices=["cpu"] * 2)
+    spec = PipelineSpec(mesh=make_pipeline_mesh(2, devices=["cpu"] * 2))
+    for kw in (dict(mesh=mesh, pipeline=spec), dict(mesh=mesh, device="cuda"),
+               dict(pipeline=spec, device="meta")):
+        with pytest.raises(ValueError):
+            Trainer(fe, enc, rnnt, **kw)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match='device="cpu"'):
         Trainer(fe, enc, rnnt)
