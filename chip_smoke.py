@@ -2958,6 +2958,7 @@ def serve_flavor(what, name, model, spf, kind, kernels, pool_kw, shorts, long_w=
     from reazonspeech_tpu_torch import ops
     from reazonspeech_tpu_torch.serving import MicroBatcher
     from reazonspeech_tpu_torch.serving.http import _result_json
+    from reazonspeech_tpu_torch.utils import profiling
 
     front = HttpFront(model, spf, **pool_kw)
     pool = front.pool
@@ -2965,7 +2966,7 @@ def serve_flavor(what, name, model, spf, kind, kernels, pool_kw, shorts, long_w=
     audio_s = sum(len(w) for w in requests) / SR
     try:
         pool.warmup(2.0)  # the executor thread's handles and pools
-        segments0, host0 = pool.segments, pool.segment_host_s
+        segments0, since_ns = pool.segments, time.time_ns()
         ops.reset_launch_counts()
         t0 = time.perf_counter()
         answers = concurrently([lambda w=w: front.call("POST", "/transcribe", w.tobytes())
@@ -3029,7 +3030,8 @@ def serve_flavor(what, name, model, spf, kind, kernels, pool_kw, shorts, long_w=
               and "".join(x["text"] for x in lines) == got[-1]["text"],
               f"{what}: the stream's lines differ from submit_long's answer")
     segs = pool.segments - segments0
-    host_ms = (pool.segment_host_s - host0) * 1e3 / max(segs, 1)
+    host_ms = sum(sp.seconds for sp in profiling.spans()
+                  if sp.name == "serve.segment" and sp.start_ns >= since_ns) * 1e3 / max(segs, 1)
     log(f"{what} on {name}: {len(requests)} requests ({audio_s:.1f} audio-s; "
         f"{len(shorts)} short, {len(windows)} windows of the long one); executor "
         f"{wall:.3f} s wall, {audio_s / wall:.2f} audio-s/s; fixed-shape MicroBatcher "

@@ -21,6 +21,14 @@ sync. Elements outside their budget are frozen by masks, so extra steps are
 no-ops: the host checks for termination once every ``CHECK_EVERY`` steps
 (one sync each), bounded by ``alsd_step_bound`` of the padded length.
 
+:func:`rnnt_beam_decode` records the span ``decode`` (``utils.profiling``;
+attrs ``steps``, the bodies dispatched, ``checks`` and ``max_steps``) with the
+children ``decode.setup`` (all before the loop), ``decode.dispatch`` (a
+block of ``CHECK_EVERY`` bodies), ``decode.check`` (the termination sync)
+and ``decode.select``, and adds to the counters ``decode.steps`` and
+``decode.checks``; :func:`alsd_segment` adds its ``n_steps`` to
+``decode.steps``. Nothing is recorded per step.
+
 The per-step joint tail runs, as in the reference:
 
 - ``joint_impl="pallas"``: the joint and the top-m in one op
@@ -60,6 +68,7 @@ from ..models.rnnt import (
 )
 from ..ops.beam_topk import joint_topm, topm_logsoftmax, topm_logsoftmax_plain
 from ..ops.lstm_step import lstm_cell_step
+from ..utils.profiling import count, span
 
 __all__ = ["BeamDecodeConfig", "rnnt_beam_decode", "ALSDBeamState", "alsd_state_init",
            "alsd_segment", "alsd_finalize", "alsd_step_bound"]
@@ -372,26 +381,37 @@ def rnnt_beam_decode(pred_params, joint_params, enc, enc_lengths, rnnt_cfg: RNNT
     Returns (tokens [B, U] int32 of the best hypothesis, frames [B, U] int32,
     counts [B] int32, scores [B] fp32 raw).
     """
-    _check_supported(cfg)
-    b, t, _ = enc.shape
-    enc_lengths = enc_lengths.to(torch.int32)
-    enc_proj = joint_precompute_enc(joint_params, enc, rnnt_cfg)  # [B, T, J]
-    max_steps = alsd_step_bound(t, cfg)
-    u_buf = cfg.max_tokens or max_steps
-    u_max_el = torch.floor(cfg.alsd_max_target_len * enc_lengths.to(torch.float32)).to(
-        torch.int32)
-    body = _make_body(pred_params, joint_params, enc_proj, enc_lengths, u_max_el,
-                      rnnt_cfg, cfg)
-    state = _init_state(pred_params, b, rnnt_cfg, cfg, u_buf, enc.device)
-    steps = 0
-    while steps < max_steps:
-        n = min(CHECK_EVERY, max_steps - steps)
-        for _ in range(n):
-            state = body(state)
-        steps += n
-        if not bool(_el_active(state, enc_lengths, u_max_el).any()):
-            break
-    return _select_best(state, cfg)
+    with span("decode") as root:
+        with span("decode.setup"):
+            _check_supported(cfg)
+            b, t, _ = enc.shape
+            enc_lengths = enc_lengths.to(torch.int32)
+            enc_proj = joint_precompute_enc(joint_params, enc, rnnt_cfg)  # [B, T, J]
+            max_steps = alsd_step_bound(t, cfg)
+            u_buf = cfg.max_tokens or max_steps
+            u_max_el = torch.floor(
+                cfg.alsd_max_target_len * enc_lengths.to(torch.float32)).to(torch.int32)
+            body = _make_body(pred_params, joint_params, enc_proj, enc_lengths, u_max_el,
+                              rnnt_cfg, cfg)
+            state = _init_state(pred_params, b, rnnt_cfg, cfg, u_buf, enc.device)
+        steps = checks = 0
+        while steps < max_steps:
+            n = min(CHECK_EVERY, max_steps - steps)
+            with span("decode.dispatch"):
+                for _ in range(n):
+                    state = body(state)
+            steps += n
+            checks += 1
+            with span("decode.check"):
+                active = bool(_el_active(state, enc_lengths, u_max_el).any())
+            if not active:
+                break
+        with span("decode.select"):
+            out = _select_best(state, cfg)
+        root.set(steps=steps, checks=checks, max_steps=max_steps)
+    count("decode.steps", steps)
+    count("decode.checks", checks)
+    return out
 
 
 # --- resumable per-lane segments (continuous batching) -----------------------
@@ -446,6 +466,7 @@ def alsd_segment(pred_params, joint_params, enc_ring, lane_len, reset_mask,
     body = _make_body(pred_params, joint_params, enc_ring, lane_len, u_max_el, rnnt_cfg, cfg)
     for _ in range(n_steps):
         state = body(state)
+    count("decode.steps", n_steps)
     return state, ~_el_active(state, lane_len, u_max_el)
 
 

@@ -35,6 +35,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..utils.profiling import span
 from .mel import mel_filterbank
 
 __all__ = ["FrontendConfig", "espnet_frontend_config", "kaldi_frontend_config",
@@ -210,49 +211,50 @@ def log_mel_spectrogram(waveform, lengths, cfg: FrontendConfig):
       (features [B, T, n_mels] float32, out_lengths [B] int32). Frames beyond
       out_lengths are zeroed.
     """
-    _check_supported(cfg)
-    if waveform.is_cuda:
-        # fp32 matmuls and convolutions must not drop to TF32 here
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
-    dev = waveform.device
-    x = waveform.to(torch.float32)
-    kernel_np, mel_np = _constants(cfg)
-    kernel = torch.from_numpy(kernel_np).to(dev)
-    mel = torch.from_numpy(mel_np).to(dev)
+    with span("frontend"):
+        _check_supported(cfg)
+        if waveform.is_cuda:
+            # fp32 matmuls and convolutions must not drop to TF32 here
+            torch.backends.cuda.matmul.allow_tf32 = False
+            torch.backends.cudnn.allow_tf32 = False
+        dev = waveform.device
+        x = waveform.to(torch.float32)
+        kernel_np, mel_np = _constants(cfg)
+        kernel = torch.from_numpy(kernel_np).to(dev)
+        mel = torch.from_numpy(mel_np).to(dev)
 
-    per_frame = cfg.preemph is not None and cfg.preemph_mode == "frame"
-    if cfg.preemph is not None and not per_frame:
-        x = torch.cat([x[:, :1], x[:, 1:] - cfg.preemph * x[:, :-1]], dim=1)
+        per_frame = cfg.preemph is not None and cfg.preemph_mode == "frame"
+        if cfg.preemph is not None and not per_frame:
+            x = torch.cat([x[:, :1], x[:, 1:] - cfg.preemph * x[:, :-1]], dim=1)
 
-    if cfg.framing == "center" and not (cfg.remove_dc or per_frame):
-        power, t_out = _power_spectrum(x, cfg, kernel)
-    else:
-        if cfg.framing != "kaldi":
-            raise ValueError("per-frame preprocessing is ported with kaldi framing only")
-        frames, t_out = _kaldi_frames(x, cfg)  # [B, T, win]
-        if cfg.remove_dc:
-            frames = frames - frames.mean(dim=-1, keepdim=True)
-        if per_frame:
-            frames = torch.cat([frames[..., :1] * (1.0 - cfg.preemph),
-                                frames[..., 1:] - cfg.preemph * frames[..., :-1]], dim=-1)
-        re, im = (frames @ kernel).chunk(2, dim=-1)
-        power = re * re + im * im
-    feats = power @ mel
-    if cfg.log_zero_guard_type == "add":
-        feats = torch.log(feats + cfg.log_zero_guard)
-    else:
-        feats = torch.log(torch.clamp(feats, min=cfg.log_zero_guard))
+        if cfg.framing == "center" and not (cfg.remove_dc or per_frame):
+            power, t_out = _power_spectrum(x, cfg, kernel)
+        else:
+            if cfg.framing != "kaldi":
+                raise ValueError("per-frame preprocessing is ported with kaldi framing only")
+            frames, t_out = _kaldi_frames(x, cfg)  # [B, T, win]
+            if cfg.remove_dc:
+                frames = frames - frames.mean(dim=-1, keepdim=True)
+            if per_frame:
+                frames = torch.cat([frames[..., :1] * (1.0 - cfg.preemph),
+                                    frames[..., 1:] - cfg.preemph * frames[..., :-1]], dim=-1)
+            re, im = (frames @ kernel).chunk(2, dim=-1)
+            power = re * re + im * im
+        feats = power @ mel
+        if cfg.log_zero_guard_type == "add":
+            feats = torch.log(feats + cfg.log_zero_guard)
+        else:
+            feats = torch.log(torch.clamp(feats, min=cfg.log_zero_guard))
 
-    lengths = lengths.to(dev)
-    out_lengths = torch.where(lengths > 0, num_frames(cfg, lengths), 0).to(torch.int32)
-    mask = torch.arange(t_out, device=dev)[None, :] < out_lengths[:, None]  # [B, T]
-    m = mask[..., None]
+        lengths = lengths.to(dev)
+        out_lengths = torch.where(lengths > 0, num_frames(cfg, lengths), 0).to(torch.int32)
+        mask = torch.arange(t_out, device=dev)[None, :] < out_lengths[:, None]  # [B, T]
+        m = mask[..., None]
 
-    if cfg.normalize == "per_feature":
-        cnt = torch.clamp(out_lengths[:, None].to(torch.float32), min=2.0)
-        mean = torch.where(m, feats, 0.0).sum(dim=1) / cnt  # [B, n_mels]
-        var = torch.where(m, (feats - mean[:, None, :]) ** 2, 0.0).sum(dim=1) / (cnt - 1.0)
-        feats = (feats - mean[:, None, :]) / (torch.sqrt(var)[:, None, :] + cfg.normalize_eps)
+        if cfg.normalize == "per_feature":
+            cnt = torch.clamp(out_lengths[:, None].to(torch.float32), min=2.0)
+            mean = torch.where(m, feats, 0.0).sum(dim=1) / cnt  # [B, n_mels]
+            var = torch.where(m, (feats - mean[:, None, :]) ** 2, 0.0).sum(dim=1) / (cnt - 1.0)
+            feats = (feats - mean[:, None, :]) / (torch.sqrt(var)[:, None, :] + cfg.normalize_eps)
 
-    return torch.where(m, feats, 0.0), out_lengths
+        return torch.where(m, feats, 0.0), out_lengths

@@ -62,6 +62,7 @@ from ..ops.relpos_attention import (
     relpos_attention_diff, relpos_attention_fused, relpos_attention_fused_diff,
     relpos_attention_fused_packed, relpos_attention_fused_packed_diff,
 )
+from ..utils.profiling import span
 from .layers import (
     batch_norm_infer, batch_norm_init, conv1d, conv1d_init, conv2d, conv2d_init,
     dense, dense_init, depthwise_conv1d, depthwise_conv1d_init, glu, layer_norm,
@@ -470,11 +471,12 @@ def fastconformer_encode(params, feats, feat_lengths, cfg: FastConformerConfig):
         raise ValueError(
             "seq_axis requires the XLA impls (attn_impl/conv_impl/lnd_impl='xla'); use "
             "parallel.sequence.sequence_parallel_config/sequence_parallel_encode")
-    feat_lengths = feat_lengths.to(torch.int32)
-    x, lengths, pos_emb, mask = _encode_prologue(params, feats, feat_lengths, cfg)
-    # what the reference's kernels are given: the valid count within T
-    key_lengths = mask.sum(dim=-1, dtype=torch.int32)
-    x = _run_blocks(params["blocks"], cfg.num_layers, x, pos_emb, mask, key_lengths, cfg)
-    if cfg.final_norm:
-        x = layer_norm(params["after_norm"], x)
-    return x.to(torch.float32), lengths
+    with span("encoder"):
+        feat_lengths = feat_lengths.to(torch.int32)
+        x, lengths, pos_emb, mask = _encode_prologue(params, feats, feat_lengths, cfg)
+        # what the reference's kernels are given: the valid count within T
+        key_lengths = mask.sum(dim=-1, dtype=torch.int32)
+        x = _run_blocks(params["blocks"], cfg.num_layers, x, pos_emb, mask, key_lengths, cfg)
+        if cfg.final_norm:
+            x = layer_norm(params["after_norm"], x)
+        return x.to(torch.float32), lengths

@@ -32,6 +32,7 @@ from ...device import resolve_device, set_fp32_matmul_policy
 from ...frontend.features import FrontendConfig, log_mel_spectrogram, nemo_frontend_config
 from ...models.fastconformer import FastConformerConfig, fastconformer_encode, init_fastconformer
 from ...models.rnnt import RNNTConfig, init_joint, init_predictor
+from ...utils.profiling import span
 
 __all__ = ["NemoTorchModel", "load_model", "asr_forward", "init_params",
            "BUCKET_SAMPLES", "DEFAULT_CHECKPOINT_ENV"]
@@ -100,11 +101,17 @@ class NemoTorchModel:
     @torch.inference_mode()
     def decode_batch(self, waveforms: np.ndarray, lengths: np.ndarray):
         """Run the pipeline on a padded [B, N] batch; returns host numpy
-        (tokens, frames, counts, enc_lengths)."""
-        wav = torch.from_numpy(np.ascontiguousarray(waveforms, np.float32)).to(self.device)
-        lens = torch.from_numpy(np.asarray(lengths, np.int32)).to(self.device)
-        out = self.decode_batch_fn()(self.params, wav, lens)
-        return tuple(x.cpu().numpy() for x in out)
+        (tokens, frames, counts, enc_lengths). Records the span
+        ``entry.forward`` over ``entry.copy_in``, the layers' spans and
+        ``entry.copy_out`` (where the host waits for the device)."""
+        with span("entry.forward"):
+            with span("entry.copy_in"):
+                wav = torch.from_numpy(np.ascontiguousarray(waveforms, np.float32)).to(
+                    self.device)
+                lens = torch.from_numpy(np.asarray(lengths, np.int32)).to(self.device)
+            out = self.decode_batch_fn()(self.params, wav, lens)
+            with span("entry.copy_out"):
+                return tuple(x.cpu().numpy() for x in out)
 
     def decode_single(self, waveform: np.ndarray):
         """Decode one utterance, bucket-padded. Returns (token_ids, frames)."""

@@ -10,6 +10,7 @@ import numpy as np
 
 from ...core.audio import norm_audio, pad_audio
 from ...core.interface import TranscribeConfig, TranscribeResult
+from ...utils.profiling import span
 from .decode import PAD_SECONDS, Hypothesis, decode_hypothesis
 from .model import BUCKET_SAMPLES, NemoTorchModel, load_model
 
@@ -103,7 +104,9 @@ def transcribe_batch(model: NemoTorchModel, audios, config=None):
     Extension over the reference (which fixes batch_size=1,
     pkg/nemo-asr/src/transcribe.py:48-50): utterances are padded to one
     bucket and decoded together — this is the throughput path the RTFx
-    benchmark measures.
+    benchmark measures. Records the span ``entry`` (``utils.profiling``;
+    attrs ``utterances``, ``audio_s``) over ``entry.prepare``, the model's
+    ``entry.forward`` and ``entry.results``.
 
     Args:
         model (NemoTorchModel)
@@ -116,24 +119,29 @@ def transcribe_batch(model: NemoTorchModel, audios, config=None):
     if config is None:
         config = TranscribeConfig()
 
-    waves = [pad_audio(norm_audio(a), PAD_SECONDS).waveform for a in audios]
-    lengths = np.asarray([len(w) for w in waves], np.int32)
-    n_max = int(lengths.max())
-    padded_n = max(BUCKET_SAMPLES, -(-n_max // BUCKET_SAMPLES) * BUCKET_SAMPLES)
-    buf = np.zeros((len(waves), padded_n), np.float32)
-    for i, w in enumerate(waves):
-        buf[i, : len(w)] = w
+    with span("entry", utterances=len(audios)) as root:
+        with span("entry.prepare"):
+            normed = [norm_audio(a) for a in audios]
+            root.set(audio_s=sum(a.duration_seconds for a in normed))
+            waves = [pad_audio(a, PAD_SECONDS).waveform for a in normed]
+            lengths = np.asarray([len(w) for w in waves], np.int32)
+            n_max = int(lengths.max())
+            padded_n = max(BUCKET_SAMPLES, -(-n_max // BUCKET_SAMPLES) * BUCKET_SAMPLES)
+            buf = np.zeros((len(waves), padded_n), np.float32)
+            for i, w in enumerate(waves):
+                buf[i, : len(w)] = w
 
-    tokens, frames, counts, _ = model.decode_batch(buf, lengths)
+        tokens, frames, counts, _ = model.decode_batch(buf, lengths)
 
-    results = []
-    for i in range(len(waves)):
-        c = int(counts[i])
-        hyp = Hypothesis.from_greedy(
-            tokens[i, :c].tolist(), frames[i, :c].tolist(), model.rnnt_cfg.blank_id
-        )
-        ret = decode_hypothesis(model, hyp)
-        if config.raw_hypothesis:
-            ret.hypothesis = hyp
-        results.append(ret)
+        with span("entry.results"):
+            results = []
+            for i in range(len(waves)):
+                c = int(counts[i])
+                hyp = Hypothesis.from_greedy(
+                    tokens[i, :c].tolist(), frames[i, :c].tolist(), model.rnnt_cfg.blank_id
+                )
+                ret = decode_hypothesis(model, hyp)
+                if config.raw_hypothesis:
+                    ret.hypothesis = hyp
+                results.append(ret)
     return results

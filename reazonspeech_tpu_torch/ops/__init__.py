@@ -1,7 +1,8 @@
 """Kernel-backed ops. Each public op launches a hand-written CUDA kernel
 (``csrc/``) on CUDA tensors and runs its ``*_plain`` PyTorch twin on CPU
 tensors. Every kernel launch is counted under the kernel's name
-(:func:`launch_counts`); the conv module's four forms count apart, as
+(:func:`launch_counts`, a view of the counters ``launch.<kernel>`` of
+``utils.profiling``); the conv module's four forms count apart, as
 ``fused_conv_module`` (caller-side LayerNorm) and ``fused_conv_module_ln``
 (in-kernel LayerNorm) with the folded batch norm, and
 ``fused_conv_module_layer`` and ``fused_conv_module_ln_layer`` with the
@@ -14,7 +15,8 @@ decoders' opt-in step kernels as ``joint_topm`` and ``lstm_cell_step``. The
 ``ops.relpos_attention``: the single-pass entry shares the module's name,
 so this package does not re-export them."""
 
-from ._kernels import KERNELS, launches
+from ..utils import profiling
+from ._kernels import KERNELS
 from .beam_topk import joint_topm, joint_topm_plain, topm_logsoftmax, topm_logsoftmax_plain
 from .conformer_conv import fold_batch_norm, fused_conv_module, fused_conv_module_plain
 from .ln_dense import (
@@ -32,13 +34,13 @@ from .zipformer_attention import (
 
 
 def reset_launch_counts():
-    for name in KERNELS:
-        launches[name] = 0
+    profiling.reset("launch.")
 
 
 def launch_counts():
     """{kernel name: launches since the last reset}."""
-    return dict(launches)
+    counted = profiling.counters()
+    return {name: counted.get("launch." + name, 0) for name in KERNELS}
 
 
 __all__ = [

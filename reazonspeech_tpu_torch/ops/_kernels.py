@@ -9,8 +9,9 @@ use into ``build/torch_kernels/`` beside the package (:data:`BUILD_DIR`;
 and flags, so an edited source is rebuilt and an unchanged one is loaded
 as it is. Each C entry launches on the stream it is given and
 returns ``cudaGetLastError()``; :func:`launch` raises when that is not 0,
-and otherwise adds one to the entry's count in :data:`launches` (keyed by
-the kernel's name, the entry without its ``rs_`` prefix).
+and otherwise adds one to the counter ``launch.<kernel>`` of
+``utils.profiling`` (the kernel's name is the entry without its ``rs_``
+prefix).
 
 Nothing here runs at import: this module is imported on machines without
 ``nvcc`` or a GPU, where only the plain twins in ``ops/`` are used.
@@ -30,8 +31,10 @@ from pathlib import Path
 
 import torch
 
+from ..utils.profiling import count
+
 __all__ = ["KERNELS", "as_dtype", "build_info", "check_cuda", "forced_tile_n", "launch",
-           "launch_on", "launches", "load_library", "records", "refuse_grad", "stream_of",
+           "launch_on", "load_library", "records", "refuse_grad", "stream_of",
            "workspace_words"]
 
 _PKG = Path(__file__).resolve().parent.parent
@@ -89,10 +92,6 @@ _WORKSPACES = {
     "rs_topm_workspace": [_I] * 3,  # R, V, m
     "rs_joint_workspace": [_I] * 4,  # R, J, V, m
 }
-# kernel name -> launches since the last reset (ops.reset_launch_counts)
-launches = dict.fromkeys(KERNELS, 0)
-_count_lock = threading.Lock()
-
 _lock = threading.Lock()
 _lib = None
 _info = {}
@@ -187,8 +186,7 @@ def launch(name, *args):
     if err != 0:
         msg = lib.rs_cuda_error_string(err).decode()
         raise RuntimeError(f"{name}: CUDA error {err} ({msg})")
-    with _count_lock:  # mesh entries launch from threads of their own
-        launches[name.removeprefix("rs_")] += 1
+    count("launch." + name.removeprefix("rs_"))  # mesh entries launch from threads of their own
 
 
 def launch_on(dev, name, *args):

@@ -45,7 +45,9 @@ Device interaction:
 - new requests are encoded in one frontend → encoder → joint-projection
   pass per tick (at one fixed shape by default) and written into the
   per-lane ring of projections; the pad rows are filtered on the host, and
-  every real write covers the lane's whole ``t_buf`` rows.
+  every real write covers the lane's whole ``t_buf`` rows;
+- the host's dispatch of each segment is the span ``serve.segment`` of
+  ``utils.profiling``.
 """
 
 import contextlib
@@ -76,6 +78,7 @@ from ..frontend.features import log_mel_spectrogram, num_frames
 from ..models.fastconformer import encoder_output_length, fastconformer_encode
 from ..models.rnnt import joint_precompute_enc
 from ..models.zipformer import ZipformerConfig, zipformer_encode, zipformer_output_length
+from ..utils.profiling import span
 
 __all__ = ["ContinuousBatcher"]
 
@@ -347,7 +350,6 @@ class ContinuousBatcher:
         # observability
         self.segments = 0
         self.encode_ticks = 0
-        self.segment_host_s = 0.0  # host seconds spent issuing segments
         # stats() sorts the latencies from an HTTP thread while the executor
         # appends: the lock guards the deque against mutation mid-iteration
         self._lat_lock = threading.Lock()
@@ -708,18 +710,18 @@ class ContinuousBatcher:
             done_dev = None
             if any(f is not None for f in self._lane_fut):
                 busy = self._bound - self._fidx
-                t0 = time.perf_counter()
                 done_dev = []
-                for g in self._groups:
-                    lanes = slice(g.lo, g.hi)
-                    with g.work():
-                        g.state, done = self._ad.segment_call(
-                            g.params, g.ring, g.put(self._lane_len[lanes]), g.put(reset[lanes]),
-                            g.state, self.n_frames, int(busy[lanes].max()))
-                        done_dev.append(None if done is None else _ToHost([done]))
+                with span("serve.segment"):  # the host's dispatch of one segment
+                    for g in self._groups:
+                        lanes = slice(g.lo, g.hi)
+                        with g.work():
+                            g.state, done = self._ad.segment_call(
+                                g.params, g.ring, g.put(self._lane_len[lanes]),
+                                g.put(reset[lanes]), g.state, self.n_frames,
+                                int(busy[lanes].max()))
+                            done_dev.append(None if done is None else _ToHost([done]))
                 if done_dev[0] is None:
                     done_dev = None
-                self.segment_host_s += time.perf_counter() - t0
                 self._fidx = np.minimum(self._fidx + self.n_frames, self._bound)
                 self.segments += 1
                 self.busy_lane_segments += sum(f is not None for f in self._lane_fut)

@@ -11,8 +11,11 @@ POST /transcribe_stream (continuous executor only) answers with
 application/x-ndjson: one JSON object of the same shape per decoded
 window, flushed as soon as it completes — read lines until EOF. When the
 lane pool's ``--max-pending`` backlog bound is hit, requests are shed with
-503 + Retry-After. GET /healthz reports readiness and batching stats,
-GET /metrics the same in Prometheus text. One process serves one card;
+503 + Retry-After. GET /healthz reports readiness and batching stats and
+the program's counters (``utils.profiling``: kernel launches
+``launch.<kernel>``, ALSD ``decode.steps`` and ``decode.checks``), GET
+/metrics the same in Prometheus text, the counters as
+``reazonspeech_count_total{name="..."}``. One process serves one card;
 scale-out is one process per card behind any load balancer.
 
 ``--flavor avsr`` serves the seq2seq AVSR family through its own static
@@ -30,8 +33,9 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 import numpy as np
 
-from .batcher import MicroBatcher
+from ..utils import profiling
 from ..utils.compile_cache import enable_compile_cache
+from .batcher import MicroBatcher
 
 __all__ = ["serve", "make_app", "make_avsr_app", "main"]
 
@@ -109,6 +113,13 @@ def _prometheus_text(stats, prefix="reazonspeech"):
     return "\n".join(lines) + "\n"
 
 
+def _counters_text(counters, prefix="reazonspeech"):
+    """The program's counters as one Prometheus counter family, a sample
+    labelled by each counter's name."""
+    return "".join(f'{prefix}_count_total{{name="{k}"}} {v}\n'
+                   for k, v in sorted(counters.items()))
+
+
 def _result_json(model, token_ids, frames, seconds_per_frame):
     toks = model.tokenizer
     text = toks.ids_to_text(token_ids)
@@ -158,13 +169,16 @@ def make_app(model, seconds_per_frame=0.08, executor="micro", **batcher_kw):
                     batcher.requests / batcher.ticks if batcher.ticks else 0.0)
             else:  # continuous executor
                 stats.update(batcher.stats())
+            stats["counters"] = profiling.counters()
             return stats
 
         def do_GET(self):
             if self.path == "/healthz":
                 self._send(200, self._stats())
             elif self.path == "/metrics":  # Prometheus scrape target
-                body = _prometheus_text(self._stats()).encode()
+                stats = self._stats()
+                counters = stats.pop("counters")
+                body = (_prometheus_text(stats) + _counters_text(counters)).encode()
                 self.send_response(200)
                 self.send_header("Content-Type",
                                  "text/plain; version=0.0.4")
