@@ -21,13 +21,30 @@ sync. Elements outside their budget are frozen by masks, so extra steps are
 no-ops: the host checks for termination once every ``CHECK_EVERY`` steps
 (one sync each), bounded by ``alsd_step_bound`` of the padded length.
 
+On a CUDA device :func:`rnnt_beam_decode` replays each full block of
+``CHECK_EVERY`` bodies as one CUDA graph: one host launch a block in place
+of some 170 kernel launches a body. A block is captured once for each
+shape, weights, configuration and calling stream, over static buffers
+(the encoder projection, the lengths, the budgets and the beam state) that
+each call copies its inputs into and that the block's last step writes
+back to; :data:`GRAPHS_KEPT` captures are cached, the least recently used
+dropped first. The graph runs the eager body's kernels on the same inputs
+in the same order, so its results are the eager loop's, bit for bit. A
+CPU decode, a batch shorter than one block and a last partial block run
+the eager loop.
+
 :func:`rnnt_beam_decode` records the span ``decode`` (``utils.profiling``;
-attrs ``steps``, the bodies dispatched, ``checks`` and ``max_steps``) with the
-children ``decode.setup`` (all before the loop), ``decode.dispatch`` (a
-block of ``CHECK_EVERY`` bodies), ``decode.check`` (the termination sync)
-and ``decode.select``, and adds to the counters ``decode.steps`` and
-``decode.checks``; :func:`alsd_segment` adds its ``n_steps`` to
-``decode.steps``. Nothing is recorded per step.
+attrs ``steps``, the bodies run, ``checks``, ``max_steps`` and
+``graph_steps``, the bodies run by a graph's replay) with the children
+``decode.setup`` (all before the loop), ``decode.capture`` (a block's
+capture, where the cache has none), ``decode.dispatch`` (a block of
+``CHECK_EVERY`` bodies, or its replay), ``decode.check`` (the termination
+sync) and ``decode.select``, and adds to the counters ``decode.steps``,
+``decode.checks``, ``decode.graph_captures`` and ``decode.graph_replays``
+(the last two on CUDA only); :func:`alsd_segment` adds its ``n_steps`` to
+``decode.steps``. Nothing is recorded per step. A replay adds to the
+``launch.<kernel>`` counters the launches its capture recorded, so a
+graphed decode counts the kernels that ran.
 
 The per-step joint tail runs, as in the reference:
 
@@ -56,6 +73,9 @@ active), so the host clock ``min(step + n_steps, alsd_step_bound(len))``
 holds.
 """
 
+import contextlib
+import threading
+from collections import OrderedDict
 from dataclasses import dataclass
 from typing import NamedTuple
 
@@ -66,7 +86,8 @@ from ..models.rnnt import (
     RNNTConfig, _embed_tokens, joint_precompute_enc, joint_step_from_enc_proj, predictor_step,
     predictor_zero_state,
 )
-from ..ops.beam_topk import joint_topm, topm_logsoftmax, topm_logsoftmax_plain
+from ..ops._kernels import deferred_launches
+from ..ops.beam_topk import joint_topm, take_workspaces, topm_logsoftmax, topm_logsoftmax_plain
 from ..ops.lstm_step import lstm_cell_step
 from ..utils.profiling import count, span
 
@@ -74,6 +95,7 @@ __all__ = ["BeamDecodeConfig", "rnnt_beam_decode", "ALSDBeamState", "alsd_state_
            "alsd_segment", "alsd_finalize", "alsd_step_bound"]
 
 CHECK_EVERY = 32  # alignment steps between host-side termination checks
+GRAPHS_KEPT = 8  # captured blocks cached; the least recently used is dropped
 _DEAD = -1.0e30  # score of an empty/killed beam slot
 _ALIVE = -1.0e25  # scores above this are live hypotheses
 
@@ -381,7 +403,7 @@ def rnnt_beam_decode(pred_params, joint_params, enc, enc_lengths, rnnt_cfg: RNNT
     Returns (tokens [B, U] int32 of the best hypothesis, frames [B, U] int32,
     counts [B] int32, scores [B] fp32 raw).
     """
-    with span("decode") as root:
+    with span("decode") as root, contextlib.ExitStack() as held:
         with span("decode.setup"):
             _check_supported(cfg)
             b, t, _ = enc.shape
@@ -391,15 +413,31 @@ def rnnt_beam_decode(pred_params, joint_params, enc, enc_lengths, rnnt_cfg: RNNT
             u_buf = cfg.max_tokens or max_steps
             u_max_el = torch.floor(
                 cfg.alsd_max_target_len * enc_lengths.to(torch.float32)).to(torch.int32)
+            state = _init_state(pred_params, b, rnnt_cfg, cfg, u_buf, enc.device)
+            block = None
+            if _graphable(enc_proj, max_steps):
+                block = _block_graph(torch.cuda.current_stream(enc.device).cuda_stream,
+                                     pred_params, joint_params, enc_proj, state, rnnt_cfg, cfg)
+                held.enter_context(block.lock)  # the static buffers are this call's
+                block.load(enc_proj, enc_lengths, u_max_el, state)
+                enc_proj, enc_lengths, u_max_el, state = (
+                    block.enc_proj, block.enc_lengths, block.u_max_el, block.state)
             body = _make_body(pred_params, joint_params, enc_proj, enc_lengths, u_max_el,
                               rnnt_cfg, cfg)
-            state = _init_state(pred_params, b, rnnt_cfg, cfg, u_buf, enc.device)
-        steps = checks = 0
+        if block is not None and block.graph is None:
+            with span("decode.capture"):
+                block.capture(pred_params, joint_params, rnnt_cfg, cfg)
+            count("decode.graph_captures")
+        steps = checks = graph_steps = 0
         while steps < max_steps:
             n = min(CHECK_EVERY, max_steps - steps)
             with span("decode.dispatch"):
-                for _ in range(n):
-                    state = body(state)
+                if block is not None and n == CHECK_EVERY:
+                    block.replay()  # reads and writes back the static state
+                    graph_steps += n
+                else:
+                    for _ in range(n):
+                        state = body(state)
             steps += n
             checks += 1
             with span("decode.check"):
@@ -408,10 +446,131 @@ def rnnt_beam_decode(pred_params, joint_params, enc, enc_lengths, rnnt_cfg: RNNT
                 break
         with span("decode.select"):
             out = _select_best(state, cfg)
-        root.set(steps=steps, checks=checks, max_steps=max_steps)
+        root.set(steps=steps, checks=checks, max_steps=max_steps, graph_steps=graph_steps)
     count("decode.steps", steps)
     count("decode.checks", checks)
+    if block is not None:
+        count("decode.graph_replays", graph_steps // CHECK_EVERY)
     return out
+
+
+# --- the block of CHECK_EVERY bodies as a CUDA graph -------------------------
+
+
+def _graphable(enc_proj, max_steps):
+    """Whether the loop replays its full blocks as a CUDA graph: a decode on
+    a CUDA device with at least one full block."""
+    return enc_proj.is_cuda and max_steps >= CHECK_EVERY
+
+
+def _leaves(state):
+    """The tensors of a beam state in field order (an LSTM state's two)."""
+    return [t for x in state for t in (x if isinstance(x, tuple) else (x,))]
+
+
+def _weights(tree):
+    """The tensors of a parameter tree, in order."""
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if isinstance(tree, dict):
+        tree = tree.values()
+    elif not isinstance(tree, (list, tuple)):
+        return []
+    return [w for x in tree for w in _weights(x)]
+
+
+class _BlockGraph:
+    """One block of ``CHECK_EVERY`` bodies captured as a CUDA graph over
+    static buffers: the encoder projection, the lengths, the budgets and the
+    beam state, which the block reads and, at its last step, writes back.
+    It holds every tensor the graph reads (the weights, the buffers, the
+    kernels' workspaces), so no captured address is freed while it lives;
+    ``lock`` is held by the call that uses its buffers."""
+
+    def __init__(self, weights, enc_proj, state):
+        self.weights = weights
+        self.lock = threading.Lock()
+        self.graph = None
+        with torch.inference_mode(False):  # a buffer any caller may copy into
+            self.enc_proj = torch.empty_like(enc_proj)
+            b = enc_proj.shape[0]
+            self.enc_lengths, self.u_max_el = (
+                torch.empty((b,), dtype=torch.int32, device=enc_proj.device) for _ in range(2))
+            self.state = ALSDBeamState(*(_map_state(torch.empty_like, x) for x in state))
+
+    def _buffers(self):
+        return [self.enc_proj, self.enc_lengths, self.u_max_el, *_leaves(self.state)]
+
+    def load(self, enc_proj, enc_lengths, u_max_el, state):
+        """Copy a call's inputs and fresh state into the static buffers."""
+        with torch.no_grad():
+            for dst, src in zip(self._buffers(), [enc_proj, enc_lengths, u_max_el,
+                                                  *_leaves(state)]):
+                dst.copy_(src)
+
+    def capture(self, pred_params, joint_params, rnnt_cfg, cfg):
+        """Capture the block on the device's capture stream, which no
+        caller runs on. One body runs there first, outside the capture, so
+        that lazy library handles and the kernels' workspaces exist before
+        it (its launches ran and count); the graph then takes those
+        workspaces for its own. The body is built inside the capture, so
+        what it derives from the lengths and weights is computed anew at
+        each replay.
+
+        One capture at a time in the process: a capture begins with a
+        device-wide synchronise, and a synchronise of the device from any
+        thread invalidates a capture under way."""
+        dev = self.enc_proj.device
+        caller = torch.cuda.current_stream(dev)
+        make = lambda: _make_body(pred_params, joint_params, self.enc_proj,  # noqa: E731
+                                  self.enc_lengths, self.u_max_el, rnnt_cfg, cfg)
+        graph = torch.cuda.CUDAGraph()
+        with _capture_lock, torch.no_grad(), torch.cuda.device(dev):
+            side = _capture_streams.get(dev)
+            if side is None:  # one a device: PyTorch's pool of 32 streams wraps round
+                side = _capture_streams[dev] = torch.cuda.Stream(dev)
+            side.wait_stream(caller)
+            with torch.cuda.stream(side):
+                make()(self.state)
+            with deferred_launches() as launches, torch.cuda.graph(
+                    graph, stream=side, capture_error_mode="thread_local"):
+                body, s = make(), self.state
+                for _ in range(CHECK_EVERY):
+                    s = body(s)
+                for dst, src in zip(_leaves(self.state), _leaves(s)):
+                    dst.copy_(src)
+            self.workspaces = take_workspaces(dev, side.cuda_stream)
+        for buf in self.workspaces:  # replays run on the caller's stream
+            buf.record_stream(caller)
+        self.graph, self.launches = graph, launches
+
+    def replay(self):
+        """Run the block on the current stream; count its kernels."""
+        self.graph.replay()
+        for name, n in self.launches.items():
+            count(name, n)
+
+
+_graphs = OrderedDict()  # key -> _BlockGraph, the least recently used first
+_graphs_lock = threading.Lock()
+_capture_lock = threading.Lock()  # held through a capture
+_capture_streams = {}  # device -> the stream captures run on, in turn
+
+
+def _block_graph(stream, pred_params, joint_params, enc_proj, state, rnnt_cfg, cfg):
+    """The cached :class:`_BlockGraph` for a decode on ``stream`` (the
+    caller's, as ``cuda_stream``) at these shapes, weights and
+    configurations; a new one, not yet captured, where none matches."""
+    weights = _weights((pred_params, joint_params))
+    key = (enc_proj.device, stream, tuple(enc_proj.shape), enc_proj.dtype,
+           tuple((t.dtype, tuple(t.shape)) for t in _leaves(state)), rnnt_cfg, cfg,
+           tuple(w.data_ptr() for w in weights))
+    with _graphs_lock:
+        entry = _graphs.pop(key, None) or _BlockGraph(weights, enc_proj, state)
+        _graphs[key] = entry
+        while len(_graphs) > GRAPHS_KEPT:
+            _graphs.popitem(last=False)
+    return entry
 
 
 # --- resumable per-lane segments (continuous batching) -----------------------

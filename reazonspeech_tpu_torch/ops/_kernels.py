@@ -11,7 +11,8 @@ as it is. Each C entry launches on the stream it is given and
 returns ``cudaGetLastError()``; :func:`launch` raises when that is not 0,
 and otherwise adds one to the counter ``launch.<kernel>`` of
 ``utils.profiling`` (the kernel's name is the entry without its ``rs_``
-prefix).
+prefix), or, inside :func:`deferred_launches` (a CUDA graph's capture,
+whose kernels run only when it is replayed), to the block's own tally.
 
 Nothing here runs at import: this module is imported on machines without
 ``nvcc`` or a GPU, where only the plain twins in ``ops/`` are used.
@@ -33,9 +34,9 @@ import torch
 
 from ..utils.profiling import count
 
-__all__ = ["KERNELS", "as_dtype", "build_info", "check_cuda", "forced_tile_n", "launch",
-           "launch_on", "load_library", "records", "refuse_grad", "stream_of",
-           "workspace_words"]
+__all__ = ["KERNELS", "as_dtype", "build_info", "check_cuda", "deferred_launches",
+           "forced_tile_n", "launch", "launch_on", "load_library", "records", "refuse_grad",
+           "stream_of", "workspace_words"]
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -95,6 +96,7 @@ _WORKSPACES = {
 _lock = threading.Lock()
 _lib = None
 _info = {}
+_local = threading.local()  # .tally: the calling thread's deferred launches
 
 
 def _nvcc():
@@ -186,7 +188,25 @@ def launch(name, *args):
     if err != 0:
         msg = lib.rs_cuda_error_string(err).decode()
         raise RuntimeError(f"{name}: CUDA error {err} ({msg})")
-    count("launch." + name.removeprefix("rs_"))  # mesh entries launch from threads of their own
+    key = "launch." + name.removeprefix("rs_")
+    tally = getattr(_local, "tally", None)
+    if tally is None:
+        count(key)  # mesh entries launch from threads of their own
+    else:
+        tally[key] = tally.get(key, 0) + 1
+
+
+@contextlib.contextmanager
+def deferred_launches():
+    """Within the block, the calling thread's launches are tallied into the
+    yielded ``{counter name: launches}`` instead of the store's counters: a
+    CUDA graph's capture records kernels that run only when it is replayed,
+    and each replay adds the tally (``utils.profiling.count``)."""
+    _local.tally = tally = {}
+    try:
+        yield tally
+    finally:
+        del _local.tally
 
 
 def launch_on(dev, name, *args):

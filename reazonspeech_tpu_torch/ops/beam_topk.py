@@ -32,7 +32,8 @@ from ._kernels import (
     as_dtype, check_cuda, launch_on, refuse_grad, stream_of, workspace_words,
 )
 
-__all__ = ["joint_topm", "joint_topm_plain", "topm_logsoftmax", "topm_logsoftmax_plain"]
+__all__ = ["joint_topm", "joint_topm_plain", "take_workspaces", "topm_logsoftmax",
+           "topm_logsoftmax_plain"]
 
 _NEG = -1.0e30  # value of an excluded column (blank, already picked)
 _ACTIVATIONS = ("relu", "tanh", "sigmoid")  # their codes in csrc/joint_topm.cu
@@ -54,6 +55,14 @@ def _workspace(kernel, dev, stream, *sizes):
     if ws[1] is None or ws[1].numel() < words:
         ws[1] = torch.empty((words,), dtype=torch.int32, device=dev)
     return ws[1].data_ptr(), ws[0].data_ptr()
+
+
+def take_workspaces(dev, stream):
+    """Remove the workspaces held for ``stream`` on ``dev`` and return their
+    buffers: a captured CUDA graph keeps the buffers its kernels read, and
+    the stream's next call gets new ones."""
+    taken = [k for k in list(_workspaces) if k[1:] == (dev.index, stream)]
+    return [buf for k in taken for buf in _workspaces.pop(k) if buf is not None]
 
 
 def topm_logsoftmax_plain(logits, m, blank):

@@ -109,7 +109,8 @@ def test_decode_root_and_counts(tiny_decoder, lengths, monkeypatch):
     root = roots[0]
     want = _expected_steps(lengths, 40, BeamDecodeConfig())
     assert root.attrs == {"steps": want, "checks": -(-want // CHECK_EVERY),
-                          "max_steps": alsd_step_bound(40, BeamDecodeConfig())}
+                          "max_steps": alsd_step_bound(40, BeamDecodeConfig()),
+                          "graph_steps": 0}  # on the CPU every body is eager
     assert len(bodies) == want
     if max(lengths) < 40:
         assert want < root.attrs["max_steps"]  # the loop stopped early
